@@ -1,10 +1,10 @@
 """The fused rollout chunk (port of ``placement_tpu/ops/fused_rollout.py``).
 
-One call runs ``num_steps`` steps of the pin environment on every board
-under a random legal policy with auto-reset: action sampling, placement and
-pin rotation, the next legality planes, the terminal centroid routing
-reward (``ops/fused_routing.py``) and, on episode end, the regeneration of
-a fresh instance. Two implementations of the same function live here:
+One call runs ``num_steps`` steps of a placement environment on every board
+under a random legal policy with auto-reset: action sampling, placement (and
+pin rotation), the next legality planes, the reward and, on episode end, the
+regeneration of a fresh instance. Two implementations of the same function
+live here:
 
   * ``rollout_chunk_reference`` — plain PyTorch on ``[B, F]`` rows, on any
     device. The CPU tests hold it to the JAX kernel (run under the Pallas
@@ -21,10 +21,12 @@ the same ``(params, leaves, seed, num_steps, block)`` give the same leaves
 in all three implementations. ``block`` is the LOGICAL block of the salt,
 whatever the launch geometry.
 
-Covered: PIN / PIN_SPATIAL with ``reward_type == "centroid"`` and
-``min_num_pins_per_net == max_num_pins_per_net`` (every shipped pin config
-with the centroid reward). The other specialisations of the JAX kernel
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+Covered, as five specialisations of the JAX kernel (``kernel_name``):
+PIN / PIN_SPATIAL with the ``centroid``, ``beam`` or ``both`` reward and
+``min_num_pins_per_net == max_num_pins_per_net``; the SQUARE and RECT
+reduced kernels (+1 per placement, no pin tables). PIN with
+``max_num_pins_per_net > min_num_pins_per_net`` raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -54,7 +56,9 @@ _FLOAT_LEAVES = ("grid", "plane0", "plane1")
 #: Fixed capacities of the CUDA kernel (the ``MAX_*`` constants of
 #: ``csrc/fused_rollout.cu``; the wrapper checks the library reports the
 #: same). Grid rows are 32-bit masks; every other table is a per-thread
-#: array of this length.
+#: array of this length. Pin configs are held to the pin capacities (and
+#: ``beam_width`` for the beam and "both" rewards), SQUARE / RECT only to
+#: the grid and ``components_nopin``.
 KERNEL_CAPACITY = {
     "height": 32,
     "width": 32,
@@ -63,10 +67,29 @@ KERNEL_CAPACITY = {
     "pins_per_net": 16,
     "pins": 48,
     "pins_per_component": 16,
+    "components_nopin": 64,
+    "beam_width": 4,
 }
 
+#: The kernel's specialisations, in the order of the C enum ``Kernel``.
+KERNELS = ("centroid", "beam", "both", "square", "rect")
 
-def _footprints(params: EnvParams) -> "list[tuple[int, int]]":
+
+def kernel_name(params: EnvParams) -> str:
+    """The specialisation of the kernel that runs ``params``."""
+    if params.variant == Variant.SQUARE:
+        return "square"
+    if params.variant == Variant.RECT:
+        return "rect"
+    return params.reward_type
+
+
+def _combos(params: EnvParams) -> "list[tuple[int, int]]":
+    """Footprints the kernel has legality planes for (``_build_kernel``
+    :312-315): SQUARE's one ``component_n`` square, otherwise every
+    (h, w) of the component ranges and its transpose."""
+    if params.variant == Variant.SQUARE:
+        return [(params.component_n, params.component_n)]
     combos = {(h, w)
               for h in range(params.min_component_h,
                              params.max_component_h + 1)
@@ -185,12 +208,12 @@ def _planes_for(params: EnvParams, grid: torch.Tensor, ch_c: torch.Tensor,
                 cw_c: torch.Tensor, alive: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Legal planes (o=0 footprint (h, w); o=1 footprint (w, h)); a
-    footprint outside ``_footprints`` gives a zero plane."""
+    footprint outside ``_combos`` gives a zero plane."""
     B = grid.shape[0]
     grid_hw = grid.view(B, params.height, params.width)
     p0 = torch.zeros_like(grid)
     p1 = torch.zeros_like(grid)
-    for (ph, pw) in _footprints(params):
+    for (ph, pw) in _combos(params):
         free = _free_anchors(grid_hw, ph, pw)
         p0 = torch.where((ch_c == ph) & (cw_c == pw), free, p0)
         p1 = torch.where((cw_c == ph) & (ch_c == pw), free, p1)
@@ -252,11 +275,31 @@ def _allocate_net(params: EnvParams, rng: _Rng, space, m, k0):
 def _generate(params: EnvParams, rng: _Rng, B: int, dev
               ) -> Tuple[torch.Tensor, ...]:
     """Fresh instances for every board, in ``_LEAVES`` order (the JAX
-    kernel's in-kernel ``generate``, pin branch, min_ppn == max_ppn)."""
+    kernel's in-kernel ``generate``, :363-601, without the max_ppn >
+    min_ppn allocation)."""
     C, N, M = (params.max_components, params.max_num_nets,
                params.max_num_pins_per_net)
     P, PPC = params.max_pins, params.max_num_pins_per_component
     ppn = params.min_num_pins_per_net
+    fgrid = torch.zeros((B, params.area), dtype=F32, device=dev)
+    neg = torch.full((B, P), -1, dtype=I32, device=dev)
+    no_pins = torch.zeros((B, 1), dtype=I32, device=dev)
+
+    def fresh(comp_h, comp_w, numc, rel_x, rel_y, pin_net, pin_comp,
+              num_pins):
+        fp0, fp1 = _planes_for(
+            params, fgrid, comp_h[:, 0:1], comp_w[:, 0:1],
+            torch.ones((B, 1), dtype=torch.bool, device=dev))
+        return (fgrid, comp_h, comp_w, torch.zeros_like(numc), numc,
+                rel_x, rel_y, neg, neg, pin_net, pin_comp, num_pins, fp0, fp1)
+
+    if params.variant == Variant.SQUARE:
+        # unlimited supply of identical n x n components; draws nothing
+        # (:364-377)
+        comp = torch.full((B, C), params.component_n, dtype=I32, device=dev)
+        numc = torch.full((B, 1), params.area, dtype=I32, device=dev)
+        return fresh(comp, comp, numc, neg, neg, neg, neg, no_pins)
+
     comp_h = rng.randint(params.min_component_h, params.max_component_h, C)
     comp_w = rng.randint(params.min_component_w, params.max_component_w, C)
     numc = rng.randint(params.min_num_components, params.max_num_components,
@@ -264,6 +307,9 @@ def _generate(params: EnvParams, rng: _Rng, B: int, dev
     cvalid = _iota(C, dev) < numc
     comp_h = torch.where(cvalid, comp_h, 0)
     comp_w = torch.where(cvalid, comp_w, 0)
+    if not params.has_pins:
+        # RECT: component sampling only, draws 2-4 (:379-397)
+        return fresh(comp_h, comp_w, numc, neg, neg, neg, neg, no_pins)
     area = comp_h * comp_w
     total_area = area.sum(1, keepdim=True, dtype=I32)
 
@@ -335,18 +381,15 @@ def _generate(params: EnvParams, rng: _Rng, B: int, dev
     used = pin_comp >= 0
     rel_x = torch.where(used, rel_x, -1)
     rel_y = torch.where(used, rel_y, -1)
-    neg = torch.full((B, P), -1, dtype=I32, device=dev)
-
-    fgrid = torch.zeros((B, params.area), dtype=F32, device=dev)
-    fp0, fp1 = _planes_for(params, fgrid, comp_h[:, 0:1], comp_w[:, 0:1],
-                           torch.ones((B, 1), dtype=torch.bool, device=dev))
-    return (fgrid, comp_h, comp_w, torch.zeros_like(numc), numc,
-            rel_x, rel_y, neg, neg, pin_net, pin_comp, num_pins, fp0, fp1)
+    return fresh(comp_h, comp_w, numc, rel_x, rel_y, pin_net, pin_comp,
+                 num_pins)
 
 
 def _penalty(params: EnvParams) -> float:
     """Worst-case (invalid-action) reward, a host double (fused_rollout
-    ``_build_kernel`` :303-309)."""
+    ``_build_kernel`` :303-311); 0 for SQUARE / RECT."""
+    if not params.has_pins:
+        return 0.0
     wl_norm = float(params.wirelength_normalizer)
     int_norm = float(params.intersections_normalizer)
     return -(float(params.weight_wirelength)
@@ -366,21 +409,34 @@ def _step(params: EnvParams, state: "list[torch.Tensor]", rng: _Rng,
     dev = grid.device
     zero = torch.zeros((), dtype=F32, device=dev)
 
+    O = params.num_orientations
     c0 = p0.sum(1, keepdim=True)
     c1 = p1.sum(1, keepdim=True)
-    total = 2.0 * (c0 + c1)            # PIN: planes 2, 3 copy 0, 1 (:1866)
+    if O == 1:                         # SQUARE: one plane
+        total = c0
+    elif O == 2:                       # RECT: two distinct planes
+        total = c0 + c1
+    else:                              # PIN: planes 2, 3 copy 0, 1 (:1866)
+        total = 2.0 * (c0 + c1)
     alive = total > 0.0
 
     u = rng.uniform(1)
     tgt = torch.minimum(torch.floor(u * total), total - 1.0)
     tgt = torch.clamp(tgt, min=0.0)
     pre1 = c0
-    pre2 = c0 + c1
-    pre3 = pre2 + c0
-    osel = ((tgt >= pre1).to(I32) + (tgt >= pre2).to(I32)
-            + (tgt >= pre3).to(I32))
-    tin = tgt - torch.where(osel == 0, zero, torch.where(
-        osel == 1, pre1, torch.where(osel == 2, pre2, pre3)))
+    if O == 1:
+        osel = torch.zeros((B, 1), dtype=I32, device=dev)
+        tin = tgt
+    elif O == 2:
+        osel = (tgt >= pre1).to(I32)
+        tin = tgt - torch.where(osel == 0, zero, pre1)
+    else:
+        pre2 = c0 + c1
+        pre3 = pre2 + c0
+        osel = ((tgt >= pre1).to(I32) + (tgt >= pre2).to(I32)
+                + (tgt >= pre3).to(I32))
+        tin = tgt - torch.where(osel == 0, zero, torch.where(
+            osel == 1, pre1, torch.where(osel == 2, pre2, pre3)))
     even = osel % 2 == 0
     plane = torch.where(even, p0, p1)
     idx = (torch.cumsum(plane, 1) <= tin).sum(1, keepdim=True, dtype=I32)
@@ -399,18 +455,19 @@ def _step(params: EnvParams, state: "list[torch.Tensor]", rng: _Rng,
     grid = torch.where(ind & alive, torch.ones((), dtype=F32, device=dev),
                        grid)
 
-    # pin rotation (Component.place_component:156-204)
-    mine = (pcomp == cur) & alive
-    nrx = torch.where(osel == 0, prx, torch.where(
-        osel == 1, pry, torch.where(osel == 2, chc - prx - 1,
-                                    cwc - pry - 1)))
-    nry = torch.where(osel == 0, pry, torch.where(
-        osel == 1, chc - prx - 1, torch.where(osel == 2, cwc - pry - 1,
-                                              prx)))
-    prx = torch.where(mine, nrx, prx)
-    pry = torch.where(mine, nry, pry)
-    pax = torch.where(mine, xx + prx, pax)
-    pay = torch.where(mine, yy + pry, pay)
+    if params.has_pins:
+        # pin rotation (Component.place_component:156-204)
+        mine = (pcomp == cur) & alive
+        nrx = torch.where(osel == 0, prx, torch.where(
+            osel == 1, pry, torch.where(osel == 2, chc - prx - 1,
+                                        cwc - pry - 1)))
+        nry = torch.where(osel == 0, pry, torch.where(
+            osel == 1, chc - prx - 1, torch.where(osel == 2, cwc - pry - 1,
+                                                  prx)))
+        prx = torch.where(mine, nrx, prx)
+        pry = torch.where(mine, nry, pry)
+        pax = torch.where(mine, xx + prx, pax)
+        pay = torch.where(mine, yy + pry, pay)
 
     cur = cur + alive.to(I32)
     placed_all = cur >= numc
@@ -422,13 +479,19 @@ def _step(params: EnvParams, state: "list[torch.Tensor]", rng: _Rng,
     done = placed_all | (nt == 0.0) | ~alive
     state = [grid, ch, cw, cur, numc, prx, pry, pax, pay, pnet, pcomp,
              npin, p0, p1]
-    reward = torch.zeros((B, 1), dtype=F32, device=dev)
+    if params.has_pins:
+        reward = torch.zeros((B, 1), dtype=F32, device=dev)
+    else:
+        # SQUARE / RECT: +1 per successful placement, terminal or not
+        # (:711-713)
+        reward = alive.to(F32)
     if bool(done.any()):
         # the JAX kernel's lax.cond(any(done)): route the post-placement
         # tables, then swap in the fresh instances
-        routed = fused_routing.reward_rows(params, pax, pay, pnet, npin)
-        reward = torch.where(done, torch.where(placed_all & alive, routed,
-                                               penalty), zero)
+        if params.has_pins:
+            routed = fused_routing.reward_rows(params, pax, pay, pnet, npin)
+            reward = torch.where(done, torch.where(placed_all & alive,
+                                                   routed, penalty), zero)
         fresh = _generate(params, rng, B, dev)
         state = [torch.where(done, f, s) for f, s in zip(fresh, state)]
     return state, reward, done
@@ -512,13 +575,8 @@ def leaves_to_numpy(leaves: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 def _unported(params: EnvParams) -> Optional[str]:
     """The ROADMAP.md item of a kernel specialisation not ported yet."""
-    if params.variant == Variant.SQUARE:
-        return "ROADMAP.md queue 2 item 5 (SQUARE reduced kernel)"
-    if params.variant == Variant.RECT:
-        return "ROADMAP.md queue 2 item 6 (RECT reduced kernel)"
-    if params.reward_type in fused_routing.UNPORTED_REWARDS:
-        return fused_routing.UNPORTED_REWARDS[params.reward_type]
-    if params.max_num_pins_per_net > params.min_num_pins_per_net:
+    if params.has_pins and (params.max_num_pins_per_net
+                            > params.min_num_pins_per_net):
         return ("ROADMAP.md queue 2 item 4 (softmax-normal net allocation, "
                 "max_num_pins_per_net > min_num_pins_per_net)")
     return None
@@ -533,17 +591,24 @@ def _check_covered(params: EnvParams) -> None:
 
 def envelope_report(params: EnvParams) -> "tuple[bool, list]":
     """Check ``params`` against the kernel's fixed capacities
-    (``KERNEL_CAPACITY``). Returns ``(ok, reasons)``, one reason per
+    (``KERNEL_CAPACITY``), split as the JAX ``envelope_report`` (:100-121)
+    splits them: pin configs against the pin tables (and the beam width
+    for the beam and "both" rewards), SQUARE / RECT against the grid and
+    ``components_nopin`` only. Returns ``(ok, reasons)``, one reason per
     violated limit, and also names an unported specialisation."""
-    sizes = {
-        "height": params.height,
-        "width": params.width,
-        "components": params.max_components,
-        "nets": params.max_num_nets,
-        "pins_per_net": params.max_num_pins_per_net,
-        "pins": params.max_pins,
-        "pins_per_component": params.max_num_pins_per_component,
-    }
+    sizes = {"height": params.height, "width": params.width}
+    if params.has_pins:
+        sizes.update({
+            "components": params.max_components,
+            "nets": params.max_num_nets,
+            "pins_per_net": params.max_num_pins_per_net,
+            "pins": params.max_pins,
+            "pins_per_component": params.max_num_pins_per_component,
+        })
+        if params.reward_type in ("beam", "both"):
+            sizes["beam_width"] = int(params.reward_beam_width)
+    else:
+        sizes["components_nopin"] = params.max_components
     reasons = [f"{k}={v} > {KERNEL_CAPACITY[k]}" for k, v in sizes.items()
                if v > KERNEL_CAPACITY[k]]
     unported = _unported(params)
@@ -569,7 +634,9 @@ class _KernelParams(ctypes.Structure):
         "pins_per_component", "min_h", "max_h", "min_w", "max_w",
         "min_c", "max_c", "min_n", "max_n", "ppn", "spatial",
         "pin_spread")] + [(n, ctypes.c_float) for n in (
-            "lam_w", "lam_i", "wl_norm", "int_norm", "penalty")]
+            "lam_w", "lam_i", "wl_norm", "int_norm", "penalty")] + [
+        (n, ctypes.c_int32) for n in (
+            "kernel", "beam_width", "component_n")]
 
 
 class _KernelLeaves(ctypes.Structure):
@@ -593,7 +660,9 @@ def _kernel_params(params: EnvParams) -> _KernelParams:
         float(params.weight_wirelength),
         float(params.weight_num_intersections),
         float(params.wirelength_normalizer),
-        float(params.intersections_normalizer), _penalty(params))
+        float(params.intersections_normalizer), _penalty(params),
+        KERNELS.index(kernel_name(params)), int(params.reward_beam_width),
+        params.component_n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -620,9 +689,9 @@ class FusedRollout:
     """``fn(leaves, seed) -> (leaves', reward_sum, done_count)``.
 
     On leaves that lie on the CPU it runs ``rollout_chunk_reference``; on
-    CUDA leaves it launches the CUDA kernel, or raises. ``launches`` counts
-    kernel launches and nothing else. ``seed`` is a host int that must
-    differ between calls.
+    CUDA leaves it launches the CUDA kernel specialised for ``params``
+    (``kernel``), or raises. ``launches`` counts kernel launches and
+    nothing else. ``seed`` is a host int that must differ between calls.
     """
 
     def __init__(self, params: EnvParams, batch: int, num_steps: int,
@@ -633,6 +702,7 @@ class FusedRollout:
         self.block = block
         self.device = torch.device(device)
         self.widths = leaf_widths(params)
+        self.kernel = kernel_name(params)
         self.launches = 0
         self._kparams = _kernel_params(params)
 

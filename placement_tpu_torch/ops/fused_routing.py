@@ -1,4 +1,4 @@
-"""Centroid routing reward on ``[B, P]`` pin tables (port of
+"""Routing rewards on ``[B, P]`` pin tables (port of
 ``placement_tpu/ops/fused_routing.py``).
 
 These are the plain PyTorch bodies of the fused rollout's terminal reward.
@@ -8,18 +8,25 @@ the same arithmetic, and ``chip_smoke.py`` holds the two together.
 
   * ``centroid_wl_int`` — centroid star routing
     (route_pins_centroid, dummy_env_rectangular_pin.py:1296-1324)
-  * ``reward_rows``     — reward composition (find_reward:832-975), centroid
-    only; beam and "both" are queue 2 items of ROADMAP.md
+  * ``beam_wl_int``     — heapq-order beam-search routing
+    (beam_search:1356-1423 / route_pins_beam_search:1425-1476): stable
+    nearest-neighbour expansion, (cost, lexicographic path) candidate
+    ranking, first-wins ties
+  * ``reward_rows``     — reward composition for all three reward types
+    (find_reward:832-975; "both" takes the route with fewer crossings,
+    tie -> beam, :951-965)
 
 The arithmetic mirrors the JAX module operation for operation: coordinates
 are small integers, so sums and squared distances are exact, ``sqrt`` is
-correctly rounded and the crossing predicate is exact. Only the order in
-which ``wl`` sums its lanes differs.
+correctly rounded (``_sqrt``) and the crossing predicate is exact. The beam
+wirelength is accumulated in the JAX module's order (nets outer, positions
+inner), so it is bit for bit the same; only the centroid wirelength sums
+its lanes in another order.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -27,18 +34,67 @@ from placement_tpu_torch.env.types import EnvParams
 
 F32 = torch.float32
 I32 = torch.int32
-
-#: reward types whose routing is still to be ported (ROADMAP.md queue 2)
-UNPORTED_REWARDS = {
-    "beam": "ROADMAP.md queue 2 item 2 (beam-search routing reward)",
-    "both": "ROADMAP.md queue 2 item 3 ('both' routing reward)",
-}
+BIG = 1e9          # dead-path cost, routing.BIG
+INF2 = 2e9         # "already selected" marker, must exceed BIG
+COORD_BASE = float(1 << 15)  # routing._COORD_BASE (point keys exact in f32)
 
 
 def _f32(v: float) -> torch.Tensor:
     """A host double rounded to f32 (the JAX module's ``F32(float(v))``)."""
     return torch.tensor(float(v), dtype=F32)
 
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root, as XLA's and CUDA's ``sqrtf``.
+
+    PyTorch's vectorised f32 ``sqrt`` on the CPU is not correctly rounded
+    (about 0.6% of inputs come out one ulp off), which can flip the
+    outlier-pin choice of a beam route; the f64 root rounded to f32 is
+    correctly rounded.
+    """
+    return torch.sqrt(x.double()).to(F32)
+
+
+def _net_arrays(params: EnvParams, pax: torch.Tensor, pay: torch.Tensor,
+                pnet: torch.Tensor, npin: torch.Tensor
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                           List[torch.Tensor], List[torch.Tensor]]:
+    """Split the net-grouped pin table into per-net [B, M] rank arrays.
+
+    Returns ``(xs, ys, present, cnt)`` lists over nets: ``xs[n][:, j]`` is
+    the f32 x of net ``n``'s j-th pin (table order), 0 where there is none;
+    ``present[n]`` bool[B, M]; ``cnt[n]`` i32[B, 1] pin count.
+    """
+    B, P = pax.shape
+    N, M = params.max_num_nets, params.max_num_pins_per_net
+    dev = pax.device
+    iota = torch.arange(P, dtype=I32, device=dev).view(1, P)
+    iota_m = torch.arange(M, dtype=I32, device=dev).view(1, M)
+    in_use = iota < npin
+    x = pax.to(F32)
+    y = pay.to(F32)
+    zero = torch.zeros((), dtype=F32, device=dev)
+
+    xs, ys, present, cnt = [], [], [], []
+    start = torch.zeros((B, 1), dtype=I32, device=dev)
+    for n in range(N):
+        mn = (pnet == n) & in_use
+        c = mn.sum(dim=1, keepdim=True, dtype=I32)
+        rin = iota - start
+        # at most one lane of the net has rank j, so the JAX module's
+        # masked sum is that lane's value
+        hit = mn.unsqueeze(2) & (rin.unsqueeze(2) == iota_m.unsqueeze(1))
+        xs.append(torch.where(hit, x.unsqueeze(2), zero).sum(dim=1))
+        ys.append(torch.where(hit, y.unsqueeze(2), zero).sum(dim=1))
+        present.append(iota_m < c)
+        cnt.append(c)
+        start = start + c
+    return xs, ys, present, cnt
+
+
+# ---------------------------------------------------------------------------
+# Centroid routing (route_pins_centroid:1296-1324) on row tables
+# ---------------------------------------------------------------------------
 
 def centroid_wl_int(params: EnvParams, pax: torch.Tensor, pay: torch.Tensor,
                     pnet: torch.Tensor, npin: torch.Tensor
@@ -108,7 +164,7 @@ def centroid_wl_int(params: EnvParams, pax: torch.Tensor, pay: torch.Tensor,
         svalid = svalid | (mn & ~(two & ~first))
     dx = x - x2
     dy = y - y2
-    wl = torch.where(svalid, torch.sqrt(dx * dx + dy * dy),
+    wl = torch.where(svalid, _sqrt(dx * dx + dy * dy),
                      zero).sum(dim=1, keepdim=True)
     x1s = x * s
     y1s = y * s
@@ -147,18 +203,221 @@ def _seg_intersect(ax1, ay1, ax2, ay2, bx1, by1, bx2, by2) -> torch.Tensor:
     return same | ((det != 0) & opp_b & opp_a)
 
 
+# ---------------------------------------------------------------------------
+# Beam-search routing (beam_search:1356-1423) on row tables
+# ---------------------------------------------------------------------------
+
+def _first_where(cond: torch.Tensor, iota_m: torch.Tensor,
+                 M: int) -> torch.Tensor:
+    """Lowest lane index where ``cond`` holds (M if none) — [B,1] i32.
+    Replicates argsort/argmax first-wins tie-breaking."""
+    return torch.where(cond, iota_m, M).amin(dim=1, keepdim=True)
+
+
+def _at(arr: torch.Tensor, idx: torch.Tensor,
+        iota_m: torch.Tensor) -> torch.Tensor:
+    """arr[b, idx[b]] as a [B,1] column (idx < M; 0.0 if idx == M)."""
+    return torch.where(iota_m == idx, arr,
+                       torch.zeros((), dtype=arr.dtype, device=arr.device)
+                       ).sum(dim=1, keepdim=True)
+
+
+def _lex_less(cost_a, pk_a, cost_b, pk_b, iota_m, M: int) -> torch.Tensor:
+    """Heap ordering (routing._heap_order): (cost, path point keys
+    lexicographically from position 0). Strict less — equal candidates
+    compare False, so iteration order supplies lexsort's stability."""
+    pos = _first_where(pk_a != pk_b, iota_m, M)
+    va = _at(pk_a, pos, iota_m)
+    vb = _at(pk_b, pos, iota_m)
+    lt = (pos < M) & (va < vb)
+    return (cost_a < cost_b) | ((cost_a == cost_b) & lt)
+
+
+def _beam_net(xs: torch.Tensor, ys: torch.Tensor, present: torch.Tensor,
+              cnt: torch.Tensor, bw: int, M: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search path for one net -> position arrays ``(px, py)`` f32[B,M].
+
+    Consecutive path positions are the route segments, valid while
+    ``t + 1 <= cnt - 1``. Same distance formulas, stable nearest-neighbour
+    order, (cost, lexicographic path) candidate ranking, first-wins ties and
+    per-board freezing after ``cnt - 1`` expansions as the JAX module.
+    """
+    B = cnt.shape[0]
+    dev = xs.device
+    iota_m = torch.arange(M, dtype=I32, device=dev).view(1, M)
+    zero = torch.zeros((), dtype=F32, device=dev)
+
+    # start = pin farthest from the net centroid (pin_outlier:1326;
+    # np.argmax -> first max wins ties); a net without pins starts at lane 0
+    denom = torch.clamp(cnt, min=1).to(F32)
+    cx = torch.where(present, xs, zero).sum(dim=1, keepdim=True) / denom
+    cy = torch.where(present, ys, zero).sum(dim=1, keepdim=True) / denom
+    dx0 = xs - cx
+    dy0 = ys - cy
+    d0 = torch.where(present, _sqrt(dx0 * dx0 + dy0 * dy0),
+                     torch.tensor(-1.0, dtype=F32, device=dev))
+    dmax = d0.amax(dim=1, keepdim=True)
+    start = _first_where(d0 == dmax, iota_m, M)
+    sx = _at(xs, start, iota_m)
+    sy = _at(ys, start, iota_m)
+    skey = sx * COORD_BASE + sy
+
+    at0 = iota_m == 0
+    cost = [torch.full((B, 1), 0.0 if k == 0 else BIG, dtype=F32,
+                       device=dev) for k in range(bw)]
+    curx = [sx] * bw
+    cury = [sy] * bw
+    vis = [(iota_m == start) | ~present] * bw
+    pk = [torch.where(at0, skey, torch.tensor(-1.0, dtype=F32,
+                                              device=dev))] * bw
+    px = [torch.where(at0, sx, zero)] * bw
+    py = [torch.where(at0, sy, zero)] * bw
+    big = torch.tensor(BIG, dtype=F32, device=dev)
+    inf2 = torch.tensor(INF2, dtype=F32, device=dev)
+
+    for step in range(M - 1):
+        at_new = iota_m == step + 1
+        # candidates: parent-major, nearest-neighbour-minor — the candidate
+        # order of beam_search_net's reshape, so first-wins selection
+        # below reproduces lexsort's stability
+        cand = []
+        for k in range(bw):
+            ddx = xs - curx[k]
+            ddy = ys - cury[k]
+            d = torch.where(vis[k], big, _sqrt(ddx * ddx + ddy * ddy))
+            taken = torch.zeros((B, M), dtype=torch.bool, device=dev)
+            for _c in range(bw):
+                eff = torch.where(taken, inf2, d)
+                m = eff.amin(dim=1, keepdim=True)
+                j = _first_where(eff == m, iota_m, M)
+                taken = taken | (iota_m == j)
+                nx = _at(xs, j, iota_m)
+                ny = _at(ys, j, iota_m)
+                ccost = cost[k] + torch.where(m >= INF2, big, m)
+                ccost = torch.where(ccost >= BIG, big, ccost)
+                nkey = nx * COORD_BASE + ny
+                cand.append(dict(
+                    cost=ccost,
+                    pk=torch.where(at_new, nkey, pk[k]),
+                    px=torch.where(at_new, nx, px[k]),
+                    py=torch.where(at_new, ny, py[k]),
+                    vis=vis[k] | (iota_m == j),
+                    cx=nx, cy=ny))
+
+        # keep the bw best candidates in heap order (first-wins ties)
+        active = (step + 1) <= (cnt - 1)
+        ctaken = [torch.zeros((B, 1), dtype=torch.bool, device=dev)
+                  for _ in cand]
+        ncost, ncurx, ncury = list(cost), list(curx), list(cury)
+        nvis, npk, npx, npy = list(vis), list(pk), list(px), list(py)
+        for k in range(bw):
+            sel = dict(cand[0])
+            sel_i = torch.full((B, 1), -1, dtype=I32, device=dev)
+            seen = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+            for i, c in enumerate(cand):
+                take = ~ctaken[i] & (
+                    ~seen | _lex_less(c["cost"], c["pk"], sel["cost"],
+                                      sel["pk"], iota_m, M))
+                sel = {f: torch.where(take, c[f], sel[f]) for f in sel}
+                sel_i = torch.where(take, i, sel_i)
+                seen = seen | ~ctaken[i]
+            for i in range(len(cand)):
+                ctaken[i] = ctaken[i] | (sel_i == i)
+            # freeze finished boards (cnt - 1 expansions done)
+            ncost[k] = torch.where(active, sel["cost"], cost[k])
+            npk[k] = torch.where(active, sel["pk"], pk[k])
+            npx[k] = torch.where(active, sel["px"], px[k])
+            npy[k] = torch.where(active, sel["py"], py[k])
+            nvis[k] = torch.where(active, sel["vis"], vis[k])
+            ncurx[k] = torch.where(active, sel["cx"], curx[k])
+            ncury[k] = torch.where(active, sel["cy"], cury[k])
+        cost, curx, cury = ncost, ncurx, ncury
+        vis, pk, px, py = nvis, npk, npx, npy
+
+    # final heap pop: min (cost, lexicographic path), first wins
+    bcost, bkeys, bx, by = cost[0], pk[0], px[0], py[0]
+    for k in range(1, bw):
+        better = _lex_less(cost[k], pk[k], bcost, bkeys, iota_m, M)
+        bcost = torch.where(better, cost[k], bcost)
+        bkeys = torch.where(better, pk[k], bkeys)
+        bx = torch.where(better, px[k], bx)
+        by = torch.where(better, py[k], by)
+    return bx, by
+
+
+def beam_wl_int(params: EnvParams, pax: torch.Tensor, pay: torch.Tensor,
+                pnet: torch.Tensor, npin: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam-route wirelength and crossing count, ``([B,1] f32) * 2``.
+
+    Every net (2-pin nets included) is routed by beam search from its
+    outlier pin; segments are consecutive path positions, ``cnt - 1`` per
+    net. Endpoints are raw integer pin coordinates, so the crossing
+    predicate is exact with no scaling. The wirelength is added one
+    ``[B, 1]`` term at a time, nets outer and positions inner, as the JAX
+    module adds it.
+    """
+    B = pax.shape[0]
+    N, M = params.max_num_nets, params.max_num_pins_per_net
+    bw = int(params.reward_beam_width)
+    dev = pax.device
+    xs, ys, present, cnt = _net_arrays(params, pax, pay, pnet, npin)
+    zero = torch.zeros((), dtype=F32, device=dev)
+
+    seg = []   # per net: (x[t], y[t] [B,1] lists of length M, valid[t])
+    wl = torch.zeros((B, 1), dtype=F32, device=dev)
+    for n in range(N):
+        bx, by = _beam_net(xs[n], ys[n], present[n], cnt[n], bw, M)
+        pxs = list(bx.split(1, dim=1))
+        pys = list(by.split(1, dim=1))
+        sv = [(t + 1) <= (cnt[n] - 1) for t in range(M - 1)]
+        seg.append((pxs, pys, sv))
+        for t in range(M - 1):
+            dx = pxs[t] - pxs[t + 1]
+            dy = pys[t] - pys[t + 1]
+            wl = wl + torch.where(sv[t], _sqrt(dx * dx + dy * dy), zero)
+
+    ints = torch.zeros((B, 1), dtype=F32, device=dev)
+    for n1 in range(N):
+        ax, ay, av = seg[n1]
+        for n2 in range(n1 + 1, N):
+            bx, by, bv = seg[n2]
+            for t1 in range(M - 1):
+                for t2 in range(M - 1):
+                    hit = _seg_intersect(
+                        ax[t1], ay[t1], ax[t1 + 1], ay[t1 + 1],
+                        bx[t2], by[t2], bx[t2 + 1], by[t2 + 1])
+                    ints = ints + (hit & av[t1] & bv[t2]).to(F32)
+    return wl, ints
+
+
+# ---------------------------------------------------------------------------
+# Reward composition (find_reward:832-975)
+# ---------------------------------------------------------------------------
+
 def reward_rows(params: EnvParams, pax: torch.Tensor, pay: torch.Tensor,
                 pnet: torch.Tensor, npin: torch.Tensor) -> torch.Tensor:
-    """Routed terminal reward ``f32[B, 1]`` (centroid routing).
+    """Routed terminal reward ``f32[B, 1]`` for any reward type.
 
-    The worst-case penalty branch lives in the rollout (reward_rows is only
-    evaluated on placed-all episode ends).
+    ``both`` takes the route with fewer crossings, tie -> beam
+    (find_reward:951-965). The worst-case penalty branch lives in the
+    rollout (reward_rows is only evaluated on placed-all episode ends).
     """
-    if params.reward_type in UNPORTED_REWARDS:
-        raise NotImplementedError(
-            f"reward_type={params.reward_type!r} is not ported yet: "
-            f"{UNPORTED_REWARDS[params.reward_type]}")
-    wl, ints = centroid_wl_int(params, pax, pay, pnet, npin)
+    if params.reward_type in ("centroid", "both"):
+        c_wl, c_int = centroid_wl_int(params, pax, pay, pnet, npin)
+    if params.reward_type in ("beam", "both"):
+        b_wl, b_int = beam_wl_int(params, pax, pay, pnet, npin)
+
+    if params.reward_type == "centroid":
+        wl, ints = c_wl, c_int
+    elif params.reward_type == "beam":
+        wl, ints = b_wl, b_int
+    else:
+        use_beam = b_int <= c_int
+        wl = torch.where(use_beam, b_wl, c_wl)
+        ints = torch.where(use_beam, b_int, c_int)
+
     dev = wl.device
     lam_w = _f32(params.weight_wirelength).to(dev)
     wl_norm = _f32(params.wirelength_normalizer).to(dev)

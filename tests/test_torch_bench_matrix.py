@@ -1,0 +1,114 @@
+"""The port's throughput matrix tool (``tools/bench_matrix.py``'s port).
+
+On CPU tensors the tool runs the fused rollout's plain version, so every
+fused row runs here at a small size (16 boards, 5-step chunks); the card runs
+it at 4096 boards (``chip_smoke.py``). The configurations must be the JAX
+tool's, field for field.
+"""
+
+import ast
+import dataclasses
+import functools
+import json
+import math
+import pathlib
+
+import pytest
+import torch
+
+from placement_tpu_torch.tools import bench_matrix
+
+JAX_TOOL = (pathlib.Path(__file__).resolve().parents[1] / "tools"
+            / "bench_matrix.py")
+
+
+def _jax_matrix_tool():
+    """``_configs`` and ``FUSED_TUNING`` of ``tools/bench_matrix.py``, taken
+    from its source alone: importing the tool would run its module-level
+    set-up (``sys.path``, JAX's persistent compilation cache)."""
+    wanted = [node for node in ast.parse(JAX_TOOL.read_text()).body
+              if getattr(node, "name", None) == "_configs"
+              or [getattr(t, "id", None) for t in getattr(node, "targets", ())]
+              == ["FUSED_TUNING"]]
+    ns = {}
+    exec(compile(ast.Module(wanted, []), str(JAX_TOOL), "exec"), ns)
+    return ns["_configs"], ns["FUSED_TUNING"]
+
+
+@pytest.fixture(scope="module")
+def configs():
+    return bench_matrix._configs()
+
+
+def test_configs_match_the_jax_tool(configs):
+    jax_configs, jax_tuning = _jax_matrix_tool()
+    want = jax_configs()
+    assert list(configs) == list(want)
+    for name, (params, anchor) in configs.items():
+        jparams, janchor = want[name]
+        assert anchor == janchor
+        for f in dataclasses.fields(jparams):
+            got, exp = getattr(params, f.name), getattr(jparams, f.name)
+            if f.name == "variant":
+                assert int(got) == int(exp), name
+            else:
+                assert got == exp, (name, f.name)
+    assert set(bench_matrix.FUSED_ROWS) == set(want) - {"web_max_pooled"}
+    # the JAX tuning's blocks are the logical PRNG blocks
+    assert bench_matrix.FUSED_TUNING == {
+        k: {"block": v["block"]} for k, v in jax_tuning.items()}
+
+
+@pytest.mark.parametrize("name", bench_matrix.FUSED_ROWS)
+def test_fused_row_runs_on_cpu_tensors(name, configs, monkeypatch):
+    monkeypatch.setattr(bench_matrix, "MAX_CALLS", 2)
+    params, anchor = configs[name]
+    row, leaves = bench_matrix.measure(name, params, anchor, 16, "cpu",
+                                       inner=5)
+    assert row["engine"] == "fused_plain" and row["device"] == "cpu"
+    assert row["launches"] == 0            # CPU tensors: no kernel
+    assert row["calls"] == 4               # warm-up, sizing, 2 timed
+    assert row["batch"] == 16 and row["block"] == 16
+    assert row["steps_per_sec"] > 0 and math.isfinite(row["steps_per_sec"])
+    assert row["episodes"] > 0 and math.isfinite(row["reward_sum"])
+    if params.has_pins:
+        # flagship episodes are exactly 5 placements: 2 timed chunks of 5
+        # steps end 2 episodes per board
+        assert row["episodes"] == 32
+        assert -3.0 < row["mean_episode_reward"] < 0.0
+    else:
+        assert row["mean_episode_reward"] > 1.0
+    for k, t in leaves.items():
+        assert t.shape[0] == 16 and t.device.type == "cpu"
+        assert torch.isfinite(t.float()).all(), k
+    json.dumps(row)
+
+
+def test_web_max_row_raises_naming_the_pooled_engine(configs):
+    params, anchor = configs["web_max_pooled"]
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        bench_matrix.measure("web_max_pooled", params, anchor, 16, "cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        bench_matrix.main(["--configs", "web_max_pooled"])
+
+
+def test_main_prints_rows_and_writes_only_when_asked(tmp_path, capsys,
+                                                     monkeypatch):
+    # main measures on the card; here its rows run on CPU tensors
+    monkeypatch.setattr(bench_matrix, "measure", functools.partial(
+        bench_matrix.measure, device="cpu"))
+    payload = bench_matrix.main(["--batch", "8", "--inner", "2",
+                                 "--configs", "square"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == payload and list(payload["rows"]) == ["square"]
+    out = tmp_path / "rows.json"
+    bench_matrix.main(["--batch", "8", "--inner", "2", "--configs", "rect",
+                       "--out", str(out)])
+    assert list(json.loads(out.read_text())["rows"]) == ["rect"]
+
+
+def test_cuda_rows_need_a_card(configs, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params, anchor = configs["square"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_matrix.measure("square", params, anchor, 16, "cuda")

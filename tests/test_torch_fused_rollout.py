@@ -211,10 +211,6 @@ def test_fixtures_are_fresh(jax_zero_b128):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,overrides,item", [
-    ("square", {}, "item 5"),
-    ("rectangle", {}, "item 6"),
-    ("rectangle_pin", {"reward_type": "beam"}, "item 2"),
-    ("rectangle_pin", {"reward_type": "both"}, "item 3"),
     ("rectangle_pin", {"min_num_pins_per_net": 2}, "item 4"),
 ])
 def test_unsupported_configs_raise(name, overrides, item):
@@ -249,6 +245,46 @@ def test_envelope_and_argument_checks():
         fn({**leaves, "cursor": torch.zeros((4, 1), dtype=torch.int32)}, 1)
 
 
+@pytest.mark.parametrize("name,overrides,reason", [
+    # the reduced kernels hold up to 64 components, the pin kernels 8
+    ("rectangle", {"max_num_components": 65, "min_num_components": 65},
+     "components_nopin=65 > 64"),
+    ("rectangle_pin", {"max_num_components": 9, "min_num_components": 9},
+     "components=9 > 8"),
+    # the beam width is checked only where a beam is routed
+    ("rectangle_pin", {"reward_type": "beam", "reward_beam_width": 5},
+     "beam_width=5 > 4"),
+    ("rectangle_pin", {"reward_type": "both", "reward_beam_width": 5},
+     "beam_width=5 > 4"),
+])
+def test_envelope_rejects_over_capacity(name, overrides, reason):
+    params = load_env_params(name).replace(**overrides)
+    ok, reasons = torch_fused.envelope_report(params)
+    assert not ok and reason in reasons, reasons
+    with pytest.raises(ValueError, match=reason):
+        torch_fused.make_fused_rollout(params, 8, 5)
+
+
+def test_envelope_splits_pin_and_reduced_capacities():
+    """SQUARE / RECT are held to the grid and components_nopin only (as the
+    JAX envelope_report splits them); the centroid reward ignores the beam
+    width."""
+    rect = load_env_params("rectangle")
+    assert rect.max_components == 20 > torch_fused.KERNEL_CAPACITY[
+        "components"]
+    assert torch_fused.envelope_report(rect) == (True, [])
+    assert torch_fused.envelope_report(rect.replace(
+        max_num_components=64, min_num_components=64)) == (True, [])
+    assert torch_fused.envelope_report(
+        load_env_params("square").replace(height=32, width=32)) == (True, [])
+    wide = load_env_params("rectangle_pin").replace(reward_beam_width=9)
+    assert torch_fused.envelope_report(wide) == (True, [])
+    ok, reasons = torch_fused.envelope_report(
+        load_env_params("square").replace(height=33, width=33,
+                                          component_n=2))
+    assert not ok and reasons == ["height=33 > 32", "width=33 > 32"]
+
+
 def test_call_sums_per_board_results():
     params = load_env_params("rectangle_pin")
     leaves = torch_fused.zero_leaves(params, 16, "cpu")
@@ -274,6 +310,7 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import placement_tpu_torch.ops.fused_rollout\n"
             "import placement_tpu_torch.utils.config\n"
+            "import placement_tpu_torch.tools.bench_matrix\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'placement_tpu'))\n"
             "print(bad)\n"
