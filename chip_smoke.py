@@ -3,16 +3,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
-of the five specialisations of the fused rollout kernel (centroid, beam and
-"both" rewards on the pin environments; the SQUARE and RECT reduced kernels)
-to the JAX reference's recorded numbers and to its plain PyTorch version,
-then drives the port's two main paths through the entry points a user calls:
+of the six specialisations of the fused rollout kernel (centroid, beam and
+"both" rewards on the pin environments; varying pins per net; the SQUARE and
+RECT reduced kernels) to the JAX reference's recorded numbers and to its
+plain PyTorch version, then drives the port's three main paths through the
+entry points a user calls:
 
   * ``bench.py``'s flagship rollout (``rectangle_pin``, centroid reward,
     4096 boards, 50-step chunks chained output to input) through
     ``make_fused_rollout``;
   * the throughput matrix, ``placement_tpu_torch.tools.bench_matrix``: its
-    six fused rows at 4096 boards, every specialisation of the kernel.
+    six fused rows at 4096 boards;
+  * the sharded rollout, ``placement_tpu_torch.parallel.mesh.
+    shard_fused_rollout``, on the web app's Train-page default (the flagship
+    with 2..6 pins per net) at 4096 boards: one rank in this process, then
+    two spawned ranks of 2048 boards (gloo on one card, NCCL on two or
+    more).
 
 Phases (any failure raises and the exit code is not 0):
   1. device  — requires CUDA; prints the card and its power limit
@@ -20,13 +26,19 @@ Phases (any failure raises and the exit code is not 0):
      reports ``ptxas -v`` for every instantiation
   3. TPU hardware goldens — k7 start, 128 boards, seed 1234, block 128: the
      rows of experiments/results/fused_hw_validation.json
-  4. JAX goldens — zero start, 128 boards, seed 1234, block 128: every
-     leaf's sha256 as recorded from the JAX kernel (tests/fixtures)
+  4. JAX goldens — zero start, 128 boards, seed 1234 (the varying-pins
+     configs: 1234 then 1235, chained), block 128: every leaf's sha256 as
+     recorded from the JAX kernel (tests/fixtures)
   5. kernel vs plain PyTorch on the card for every fused row of the matrix
-     (its config and block) at 4096 boards, 50 steps; times of both
+     (its config and block) and both varying-pins configs at 4096 boards,
+     50 steps; times of both
   6. main path 1, timed; the kernel's launch count must equal the calls
   7. main path 2, the matrix; launch counts set to 0 before and read after:
      every specialisation must have launched
+  8. main path 3, the sharded rollout; one rank timed, its launches equal
+     to its calls and its leaves to ``make_fused_rollout``'s; each of two
+     ranks' leaves equal to the one-process kernel on its shard at seed +
+     rank, and the reduced totals to the sums of the ranks' own
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,12 +79,19 @@ KERNELS = {
     "rect": ("rect", "rectangle", 30, "torch_fused_init_k7_b128_rectangle.npz",
              "RECT reduced kernel"),
 }
+#: specialisation 6, PIN with max_num_pins_per_net > min_num_pins_per_net
+#: (a branch of the generator in the pin instantiations): config (its JAX
+#: golden's) -> logical block at 4096 boards, that of the matrix row with
+#: the same reward. "web" is main path 3's config.
+VARPIN = {"varpin_web": 256, "varpin_parity": 128}
 #: recorded JAX goldens: name -> fixture
 JAX_GOLDENS = {
     "centroid": "torch_fused_zero_b128.json",
     **{k: f"torch_fused_zero_b128_{k}.json"
-       for k in ("beam", "both", "square", "rect", "spatial")},
+       for k in ("beam", "both", "square", "rect", "spatial", *VARPIN)},
 }
+#: main path 3's ranks: chained seeds
+RANK_SEEDS = (1, 2)
 
 
 def _check(cond, what):
@@ -148,18 +167,25 @@ def phase_hw_golden(kernel):
     _check(abs(diff) <= tol, f"{kernel} hardware golden reward sum")
 
 
+def _golden_params(want):
+    from placement_tpu_torch.utils.config import load_env_params
+    return load_env_params(want["config"]).replace(
+        **want.get("overrides", {}))
+
+
 def phase_jax_golden(name):
     from placement_tpu_torch.ops import fused_rollout as fr
-    from placement_tpu_torch.utils.config import load_env_params
     want = json.loads((FIXTURES / JAX_GOLDENS[name]).read_text())
-    params = load_env_params(want["config"]).replace(
-        **want.get("overrides", {}))
+    params = _golden_params(want)
     fn = fr.make_fused_rollout(params, want["batch"], want["num_steps"],
                                block=want["block"], device="cuda")
-    out, rsum, dcnt = fn(fr.zero_leaves(params, want["batch"], "cuda"),
-                         want["seed"])
+    out = fr.zero_leaves(params, want["batch"], "cuda")
+    rsum = dcnt = 0
+    for seed in want["seeds"] if "seeds" in want else [want["seed"]]:
+        out, r, d = fn(out, seed)
+        rsum += float(r)
+        dcnt += int(d)
     bad = [k for k in fr._LEAVES if _leaf_sha256(out[k]) != want["sha256"][k]]
-    rsum, dcnt = float(rsum), int(dcnt)
     print(f"[jax golden] {name} ({fn.kernel} kernel): leaves differing "
           f"{bad}; episodes {dcnt} (JAX {want['done_count']}), reward sum "
           f"{rsum!r} (JAX {want['reward_sum']!r})")
@@ -193,17 +219,12 @@ def _plain_ms(params, leaves, seed, block):
     return (time.perf_counter() - t0) * 1e3
 
 
-def phase_kernel_vs_plain(row, beam_width=None):
-    """The kernel against its plain version at the matrix row's shape
-    (at ``beam_width`` if given); returns (max abs error, kernel ms per
-    chunk, plain ms per chunk)."""
+def phase_kernel_vs_plain(label, params, block):
+    """The kernel against its plain version on ``params`` at 4096 boards
+    and logical ``block``; returns (max abs error, kernel ms per chunk,
+    plain ms per chunk)."""
     import torch
     from placement_tpu_torch.ops import fused_rollout as fr
-    params, block = _row(row)
-    label = row
-    if beam_width is not None:
-        params = params.replace(reward_beam_width=beam_width)
-        label = f"{row} bw={beam_width}"
     label += f" ({fr.kernel_name(params)} kernel)"
     fn = fr.make_fused_rollout(params, BATCH, STEPS, block=block,
                                device="cuda")
@@ -325,8 +346,96 @@ def phase_matrix(ref_means):
     return launches
 
 
+def phase_sharded(params, block, ref_mean):
+    """Main path 3: ``shard_fused_rollout`` at 4096 boards. One rank (no
+    process group) in this process, timed as main path 1 and held to
+    ``make_fused_rollout`` on the same seeds; then two spawned ranks of
+    2048 boards, each held to the one-process kernel on its shard at seed
+    + rank. Returns (kernel launches of the path, one-rank env-steps/s)."""
+    import torch
+    from placement_tpu_torch.ops import fused_rollout as fr
+    from placement_tpu_torch.parallel import mesh
+    fn = mesh.shard_fused_rollout(params, BATCH, STEPS, block=block,
+                                  device="cuda")
+    ref = fr.make_fused_rollout(params, BATCH, STEPS, block=block,
+                                device="cuda")
+
+    def same(a, b):
+        return [k for k in fr._LEAVES if not torch.equal(a[k], b[k])]
+
+    zero = fr.zero_leaves(params, BATCH, "cuda")
+    fn.local.launches = 0
+    leaves, racc, _ = fn(zero, 1)
+    bad = same(leaves, ref(zero, 1)[0])
+    _check(not bad, f"main path 3: one rank differs from the kernel: {bad}")
+    float(racc)
+    racc = torch.zeros((), dtype=torch.float32, device="cuda")
+    dacc = torch.zeros((), dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    for seed in range(2, 2 + TIMED_CHUNKS):
+        prev = leaves
+        leaves, rsum, dcnt = fn(leaves, seed)
+        racc = racc + rsum
+        dacc = dacc + dcnt
+    reward = float(racc)              # the sync: needs every chunk's output
+    dt = time.perf_counter() - t0
+    launches = fn.local.launches
+    episodes = int(dacc)
+    rate = BATCH * STEPS * TIMED_CHUNKS / dt
+    print(f"[main path 3] 1 rank: {TIMED_CHUNKS} chunks of {STEPS} steps x "
+          f"{BATCH} boards in {dt!r} s: {rate!r} env-steps/s; kernel "
+          f"launches {launches} for {1 + TIMED_CHUNKS} calls; {episodes} "
+          f"episodes, mean episode reward {reward / episodes!r} (JAX golden's"
+          f" routed mean {ref_mean!r})", flush=True)
+    _check(launches == 1 + TIMED_CHUNKS, "main path 3 missed the kernel")
+    bad = same(leaves, ref(prev, 1 + TIMED_CHUNKS)[0])
+    _check(not bad, f"main path 3: one rank differs from the kernel: {bad}")
+    # episodes are 5 placements whatever the pin count
+    _check(episodes == 10 * BATCH * TIMED_CHUNKS, "episode accounting")
+    _check(all(torch.isfinite(leaves[k]).all() for k in fr._FLOAT_LEAVES)
+           and all(tuple(leaves[k].shape) == (BATCH, w)
+                   for k, w in fr.leaf_widths(params).items()),
+           "main path 3 leaves")
+    _check(abs(reward / episodes - ref_mean) < 0.1, "mean episode reward")
+
+    world = 2
+    local = BATCH // world
+    backend = mesh.backend_for("cuda", world)
+    ranks = mesh.spawn_ranks(
+        mesh.rollout_rank, world,
+        args=(params, BATCH, STEPS, block, list(RANK_SEEDS), "cuda"),
+        backend=backend)
+    own = []
+    for r, res in enumerate(ranks):
+        one = fr.make_fused_rollout(params, local, STEPS, block=block,
+                                    device="cuda")
+        lv = fr.zero_leaves(params, local, "cuda")
+        totals = []
+        for seed in RANK_SEEDS:
+            lv, rsum, dcnt = one(lv, seed + r)
+            totals.append((float(rsum), int(dcnt)))
+        own.append(totals)
+        bad = same(fr.leaves_from_numpy(res["leaves"], "cuda"), lv)
+        print(f"[main path 3] rank {r} of {world} ({backend}): {local} "
+              f"boards, leaves differing from the one-process kernel at "
+              f"seed + {r}: {bad}; launches {res['launches']} for "
+              f"{len(RANK_SEEDS)} calls; reduced totals {res['totals']}, "
+              f"own {totals}", flush=True)
+        _check(not bad, f"main path 3: rank {r} differs: {bad}")
+        _check(res["launches"] == len(RANK_SEEDS),
+               f"main path 3: rank {r} missed the kernel")
+    for res in ranks:
+        for i, (rsum, dcnt) in enumerate(res["totals"]):
+            _check(dcnt == sum(t[i][1] for t in own),
+                   "main path 3: reduced episode count")
+            _check(abs(rsum - sum(t[i][0] for t in own))
+                   <= RSUM_TOL_PER_128 * BATCH / 128,
+                   "main path 3: reduced reward sum")
+    return launches + sum(res["launches"] for res in ranks), rate
+
+
 def main():
-    name = phase_device()
+    device_name = phase_device()
     import torch
     from placement_tpu_torch.ops import fused_rollout as fr
     from placement_tpu_torch.tools import bench_matrix as bm
@@ -334,18 +443,23 @@ def main():
     for kernel in KERNELS:
         phase_hw_golden(kernel)
     goldens = {g: phase_jax_golden(g) for g in JAX_GOLDENS}
-    results = {row: phase_kernel_vs_plain(row) for row in bm.FUSED_ROWS}
+    results = {row: phase_kernel_vs_plain(row, *_row(row))
+               for row in bm.FUSED_ROWS}
     # the beam at its capacity width
-    err4, ms4, plain4 = phase_kernel_vs_plain("pin_beam", beam_width=4)
+    params, block = _row("pin_beam")
+    err4, ms4, plain4 = phase_kernel_vs_plain(
+        "pin_beam bw=4", params.replace(reward_beam_width=4), block)
+    for config, block in VARPIN.items():
+        results[config] = phase_kernel_vs_plain(
+            config, _golden_params(goldens[config]), block)
     hw = json.loads(HW_GOLDENS.read_text())
     phase_main_path(_row("pin_centroid")[0], hw["centroid"]["mean_reward"])
     # references of the pin rows' mean episode reward: the TPU goldens'
     # (640 episodes each), and for the spatial config, which has none, the
     # JAX kernel's routed episodes from zero boards (768 episodes, of which
     # the first 128 are the zero boards' invalid-action penalties)
-    from placement_tpu_torch.utils.config import load_env_params
     spatial = goldens["spatial"]
-    pen = fr._penalty(load_env_params(spatial["config"]))
+    pen = fr._penalty(_golden_params(spatial))
     ref_means = {
         "pin_centroid": hw["centroid"]["mean_reward"],
         "pin_beam": hw["beam"]["mean_reward"],
@@ -354,6 +468,12 @@ def main():
         / (spatial["done_count"] - spatial["batch"]),
     }
     launches = phase_matrix(ref_means)
+    web = goldens["varpin_web"]
+    pen = fr._penalty(_golden_params(web))
+    launches["varpin"], rate3 = phase_sharded(
+        _golden_params(web), VARPIN["varpin_web"],
+        (web["reward_sum"] - web["batch"] * pen)
+        / (web["done_count"] - web["batch"]))
     entries = []
     for k, (row, *_, replaces) in KERNELS.items():
         err, ms, plain_ms = results[row]
@@ -368,11 +488,31 @@ def main():
             "ms": ms,
             "plain_ms": plain_ms,
         })
+    # the varying-pins branch on main path 3's config; the error is the
+    # larger of both configs'
+    err, ms, plain_ms = results["varpin_web"]
+    entries.append({
+        "name": "fused_rollout_varpin",
+        "route": "cuda",
+        "source": "placement_tpu_torch/ops/csrc/fused_rollout.cu",
+        "replaces": "placement_tpu/ops/fused_rollout.py:866 (PIN, max_ppn "
+                    "> min_ppn, :399-450)",
+        "launches": launches["varpin"],
+        "max_abs_err": max(err, results["varpin_parity"][0]),
+        "ms": ms,
+        "plain_ms": plain_ms,
+    })
     print(f"[kernel vs plain] beam bw=4: max abs err {err4!r}, kernel "
           f"{ms4!r} ms, plain {plain4!r} ms")
+    print(f"[kernel vs plain] varpin_parity: max abs err "
+          f"{results['varpin_parity'][0]!r}, kernel "
+          f"{results['varpin_parity'][1]!r} ms, plain "
+          f"{results['varpin_parity'][2]!r} ms")
+    print(f"[main path 3] one rank {rate3!r} env-steps/s vs 4096 x 50 / "
+          f"kernel ms {BATCH * STEPS / results['varpin_web'][1] * 1e3!r}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
 
 

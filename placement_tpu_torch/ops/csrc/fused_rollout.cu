@@ -5,8 +5,10 @@
 // kernel is specialised at trace time; here each specialisation is one
 // instantiation of the template fused_rollout_kernel<K> (enum Kernel):
 //   K_CENTROID, K_BEAM, K_BOTH  PIN / PIN_SPATIAL with the centroid, beam or
-//       "both" routing reward (placement_tpu/ops/fused_routing.py), and
-//       min_num_pins_per_net == max_num_pins_per_net;
+//       "both" routing reward (placement_tpu/ops/fused_routing.py); when
+//       max_num_pins_per_net > min_num_pins_per_net their generator also
+//       runs the softmax-normal net allocation (extra_pins), a branch on
+//       the parameters that every board of a launch takes alike;
 //   K_SQUARE, K_RECT  the reduced kernels: no pin tables, +1 per placement,
 //       one (SQUARE) or two (RECT) orientation planes.
 // Each thread runs the whole num_steps chunk of its board: random
@@ -40,11 +42,14 @@
 // Semantics kept bit for bit with the JAX kernel: the counter-hash PRNG
 // (_mix/_Rng) with the LOGICAL block of make_fused_rollout's `block`
 // argument in the salt, the draw order (call 1 in the step; 2..7+N in the
-// pin generator, 2..4 in RECT's, none in SQUARE's), stable sorts, in-order
-// water-fills, true f32 division in the allocation and the beam's centroid,
-// first-wins ties, and the f32 operation order of the routing rewards.
-// Build with -fmad=false and without --use_fast_math so no FMA contraction
-// or approximate division or sqrt changes a rounding.
+// pin generator, 2..10+N with extra pins per net, 2..4 in RECT's, none in
+// SQUARE's), stable sorts, in-order water-fills, true f32 division in the
+// allocation and the beam's centroid, first-wins ties, and the f32 operation
+// order of the routing rewards. Build with -fmad=false and without
+// --use_fast_math so no FMA contraction or approximate division or sqrt
+// changes a rounding. The net allocation's log, cos, exp and sqrt are taken
+// in f64 and rounded to f32, as the plain version takes them: f32 libraries
+// (XLA's, PyTorch's, CUDA's) do not round them correctly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,10 +91,12 @@ struct FusedRolloutParams {
   int32_t components, nets, pins_per_net, pins, pins_per_component;
   int32_t min_h, max_h, min_w, max_w;
   int32_t min_c, max_c, min_n, max_n;
-  int32_t ppn;          // pins per net (min == max)
+  int32_t ppn;          // min pins per net
+  int32_t max_ppn;      // max pins per net: > ppn runs extra_pins
   int32_t spatial;      // PIN_SPATIAL's k0 formula
   int32_t pin_spread;
   float lam_w, lam_i, wl_norm, int_norm, penalty;
+  float net_div;        // net_distribution + 1
   int32_t kernel;       // enum Kernel
   int32_t beam_width;   // K_BEAM, K_BOTH
   int32_t component_n;  // K_SQUARE's n x n footprint
@@ -562,11 +569,12 @@ __device__ float routed_reward(const FusedRolloutParams& p, const Board& b) {
 
 // ---- in-kernel instance generator (generate) -----------------------------
 
-// One net's pin -> component allocation; writes the component of each of
-// the net's M ranks to `comp_of` and updates `space` when the net is open.
+// One net's pin -> component allocation, drawing call `call`; writes the
+// component of each of the net's M ranks to `comp_of` and updates `space`
+// when the net is open.
 __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
-                             int n, int m, int k0, bool open, int* space,
-                             int* comp_of) {
+                             uint32_t call, int m, int k0, bool open,
+                             int* space, int* comp_of) {
   const int C = p.components, M = p.pins_per_net;
   // components by free space, descending; keys space*(C+1)+(C-1-i) are
   // unique, so any correct sort gives the bubble network's order
@@ -598,7 +606,7 @@ __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
   int cnt[MAX_C];
   for (int c = 0; c < C; ++c) cnt[c] = 0;
   for (int j = 0; j < m; ++j) {
-    const float ut = rng.uniform(7 + n, M, j);
+    const float ut = rng.uniform(call, M, j);
     int bin = 0;
     for (int c = 0; c < C - 1; ++c) bin += ut > cw_cum[c] / tot_w;
     ++cnt[bin];
@@ -628,7 +636,59 @@ __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
     for (int c = 0; c < C; ++c) space[s_idx[c]] = s_space[c] - cnt[c];
 }
 
-// The pin kernels' generator (generate, :363-601 without :407-450).
+// Adds to `net_count` the extra pins of each open net when max_ppn > min_ppn
+// (generate :407-450, allocate_pins_to_nets:1067): weights softmax(N(1/nn,
+// 1/(net_distribution + 1))) from N Box-Muller normals (draws 7 and 8), a
+// multinomial of the `extra_total` extra pins (draw 9, T = (max_ppn -
+// min_ppn) * N uniforms, each binned as it is drawn) capped at max_ppn -
+// min_ppn per net, then an in-order water-fill of the residue.
+__device__ void extra_pins(const FusedRolloutParams& p, const Rng& rng, int nn,
+                           int extra_total, int* net_count) {
+  const int N = p.nets, span = p.max_ppn - p.ppn, T = span * N;
+  float s[MAX_N];
+  float smax = -1e9f;
+  for (int n = 0; n < N; ++n) {
+    const float u1 = fmaxf(rng.uniform(7, N, n), 1e-7f);
+    const float u2 = rng.uniform(8, N, n);
+    const float r = (float)sqrt((double)(-2.0f * (float)log((double)u1)));
+    const float z = r * (float)cos((double)(6.2831853f * u2));
+    const float mean = 1.0f / (float)max(nn, 1);
+    s[n] = n < nn ? mean + z / p.net_div : -1e9f;
+    smax = fmaxf(smax, s[n]);
+  }
+  float e[MAX_N];
+  float tot = 0.f;
+  for (int n = 0; n < N; ++n) {
+    e[n] = (float)exp((double)(s[n] - smax));
+    tot += e[n];
+  }
+  float cprob[MAX_N];
+  float acc = 0.f;
+  for (int n = 0; n < N; ++n) cprob[n] = acc += e[n] / tot;
+  int cnt[MAX_N];
+  for (int n = 0; n < N; ++n) cnt[n] = 0;
+  for (int j = 0; j < min(extra_total, T); ++j) {
+    const float ut = rng.uniform(9, T, j);
+    int bin = 0;
+    for (int c = 0; c < N - 1; ++c) bin += ut > cprob[c];
+    ++cnt[bin];
+  }
+  const int cap = min(span, extra_total);
+  int got = 0;
+  for (int n = 0; n < N; ++n) {
+    cnt[n] = min(cnt[n], n < nn ? cap : 0);
+    got += cnt[n];
+  }
+  const int resid = extra_total - got;
+  int before = 0;
+  for (int n = 0; n < N; ++n) {
+    const int free_n = (n < nn ? cap : 0) - cnt[n];
+    net_count[n] += cnt[n] + min(max(resid - before, 0), free_n);
+    before += free_n;
+  }
+}
+
+// The pin kernels' generator (generate, :363-601).
 template <int K>
 __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
                          Board& b) {
@@ -647,32 +707,44 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
     area[c] = space[c] = h * w;
     total_area += h * w;
   }
-  // draw 5: net count; draw 6 (total pins) feeds only the
-  // max_ppn > min_ppn allocation, which this kernel does not cover
+  // draw 5: net count; draw 6: total pin count, which feeds only the
+  // max_ppn > min_ppn allocation (draws 7, 8, 9)
   int nn = randint(p.min_n, p.max_n, rng.uniform(5, 1, 0));
   nn = max(min(nn, total_area / 2), 1);
+  int net_count[MAX_N];
+  for (int n = 0; n < N; ++n) net_count[n] = n < nn ? p.ppn : 0;
+  // first call of the per-net allocations: after draw 6, or after draw 9
+  uint32_t call_base = 7;
+  if (p.max_ppn > p.ppn) {
+    const int tp = min(
+        randint(p.ppn * nn, p.max_ppn * nn, rng.uniform(6, 1, 0)),
+        total_area);
+    extra_pins(p, rng, nn, max(tp - p.ppn * nn, 0), net_count);
+    call_base = 10;
+  }
   int ncum[MAX_N];
   int num_pins = 0;
-  for (int n = 0; n < N; ++n) ncum[n] = num_pins += n < nn ? p.ppn : 0;
+  for (int n = 0; n < N; ++n) ncum[n] = num_pins += net_count[n];
   b.npin = num_pins;
 
   int k0 = p.spatial ? (p.pin_spread * b.numc) / 10 + 1
                      : max(((p.pin_spread + 1) * b.numc) / 10, 1);
   k0 = min(k0, b.numc);
   int table[MAX_N * MAX_M];
-  for (int n = 0; n < N; ++n)  // draws 7 .. 6+N
-    allocate_net(p, rng, n, n < nn ? p.ppn : 0, k0, n < nn, space,
+  for (int n = 0; n < N; ++n)  // draws call_base .. call_base+N-1
+    allocate_net(p, rng, call_base + n, net_count[n], k0, n < nn, space,
                  table + n * M);
 
-  // draw 7+N: a random cell order per component, stable ascending sort of
-  // uniform scores with unused cells scored 2.0
+  // draw call_base+N: a random cell order per component, stable ascending
+  // sort of uniform scores with unused cells scored 2.0
   int cell_table[MAX_C * MAX_PPC];
   for (int c = 0; c < C; ++c) {
     float sc[MAX_PPC];
     int* perm = cell_table + c * PPC;
     for (int k = 0; k < PPC; ++k) {
-      const float v = k < area[c] ? rng.uniform(7 + N, C * PPC, c * PPC + k)
-                                  : 2.0f;
+      const float v = k < area[c]
+                          ? rng.uniform(call_base + N, C * PPC, c * PPC + k)
+                          : 2.0f;
       int j = k;
       while (j > 0 && sc[j - 1] > v) {
         sc[j] = sc[j - 1];

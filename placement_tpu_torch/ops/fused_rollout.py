@@ -21,25 +21,26 @@ the same ``(params, leaves, seed, num_steps, block)`` give the same leaves
 in all three implementations. ``block`` is the LOGICAL block of the salt,
 whatever the launch geometry.
 
-Covered, as five specialisations of the JAX kernel (``kernel_name``):
-PIN / PIN_SPATIAL with the ``centroid``, ``beam`` or ``both`` reward and
-``min_num_pins_per_net == max_num_pins_per_net``; the SQUARE and RECT
-reduced kernels (+1 per placement, no pin tables). PIN with
-``max_num_pins_per_net > min_num_pins_per_net`` raises
-``NotImplementedError`` naming its ROADMAP.md item.
+Covered: every specialisation of the JAX kernel. PIN / PIN_SPATIAL with the
+``centroid``, ``beam`` or ``both`` reward (one kernel each, ``kernel_name``),
+with fixed pins per net or with ``max_num_pins_per_net >
+min_num_pins_per_net`` (the softmax-normal net allocation, a branch of the
+generator); the SQUARE and RECT reduced kernels (+1 per placement, no pin
+tables).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
 
 from placement_tpu_torch.env.types import EnvParams, Variant
 from placement_tpu_torch.ops import fused_routing
+from placement_tpu_torch.ops.fused_routing import _f64_rounded
 
 F32 = torch.float32
 I32 = torch.int32
@@ -272,15 +273,63 @@ def _allocate_net(params: EnvParams, rng: _Rng, space, m, k0):
     return comp_of, new_space
 
 
+def _extra_pins(params: EnvParams, rng: _Rng, nn: torch.Tensor,
+                net_open: torch.Tensor, extra_total: torch.Tensor
+                ) -> torch.Tensor:
+    """Extra pins of each net when ``max_ppn > min_ppn`` (the JAX kernel's
+    :407-450, allocate_pins_to_nets:1067): weights softmax(N(1/nn,
+    1/(net_distribution + 1))) over the open nets, a multinomial of the
+    ``extra_total`` extra pins capped at ``max_ppn - min_ppn`` per net, and
+    an in-order water-fill of the residue. Draws calls 7, 8 and 9 of the
+    generator; returns i32 [B, N]."""
+    N = params.max_num_nets
+    span = params.max_num_pins_per_net - params.min_num_pins_per_net
+    u1 = torch.maximum(rng.uniform(N), torch.tensor(1e-7, dtype=F32,
+                                                    device=nn.device))
+    u2 = rng.uniform(N)
+    z = (_f64_rounded(torch.sqrt, -2.0 * _f64_rounded(torch.log, u1))
+         * _f64_rounded(torch.cos, torch.full_like(u2, 6.2831853) * u2))
+    # divisions by full tensors: CUDA divides by a scalar as a multiply by
+    # its reciprocal, which rounds differently
+    mean = torch.ones_like(z) / torch.clamp(nn, min=1).to(F32)
+    s = mean + z / torch.full_like(z, params.net_distribution + 1.0)
+    s = torch.where(net_open, s, torch.full_like(s, -1e9))
+    e = _f64_rounded(torch.exp, s - s.max(1, keepdim=True).values)
+    tot = e[:, 0:1]
+    for c in range(1, N):              # in column order, as the kernel adds
+        tot = tot + e[:, c:c + 1]
+    probs = e / tot
+    cprob = probs[:, 0:1]
+    ut = rng.uniform(span * N)
+    bint = torch.zeros(ut.shape, dtype=I32, device=ut.device)
+    for c in range(N - 1):
+        if c:
+            cprob = cprob + probs[:, c:c + 1]
+        bint = bint + (ut > cprob).to(I32)
+    active = _iota(span * N, ut.device) < extra_total
+    cnt = torch.stack([((bint == c) & active).sum(1, dtype=I32)
+                       for c in range(N)], 1)
+    caps = torch.where(net_open, torch.clamp(extra_total, max=span), 0)
+    cnt = torch.minimum(cnt, caps)
+    resid = extra_total - cnt.sum(1, keepdim=True, dtype=I32)
+    before = torch.zeros_like(resid)
+    cols = []
+    for c in range(N):
+        free_c = caps[:, c:c + 1] - cnt[:, c:c + 1]
+        cols.append(cnt[:, c:c + 1] + torch.minimum(
+            torch.clamp(resid - before, min=0), free_c))
+        before = before + free_c
+    return torch.cat(cols, 1)
+
+
 def _generate(params: EnvParams, rng: _Rng, B: int, dev
               ) -> Tuple[torch.Tensor, ...]:
     """Fresh instances for every board, in ``_LEAVES`` order (the JAX
-    kernel's in-kernel ``generate``, :363-601, without the max_ppn >
-    min_ppn allocation)."""
+    kernel's in-kernel ``generate``, :363-601)."""
     C, N, M = (params.max_components, params.max_num_nets,
                params.max_num_pins_per_net)
     P, PPC = params.max_pins, params.max_num_pins_per_component
-    ppn = params.min_num_pins_per_net
+    ppn, max_ppn = params.min_num_pins_per_net, params.max_num_pins_per_net
     fgrid = torch.zeros((B, params.area), dtype=F32, device=dev)
     neg = torch.full((B, P), -1, dtype=I32, device=dev)
     no_pins = torch.zeros((B, 1), dtype=I32, device=dev)
@@ -315,11 +364,14 @@ def _generate(params: EnvParams, rng: _Rng, B: int, dev
 
     nn = rng.randint(params.min_num_nets, params.max_num_nets, 1)
     nn = torch.clamp(torch.minimum(nn, total_area // 2), min=1)
-    # call 6 draws the total pin count; with min_ppn == max_ppn its value
-    # feeds nothing, but the draw keeps the call numbering of the JAX kernel
-    rng.randint(ppn * nn, ppn * nn, 1)
-
-    net_counts = torch.where(_iota(N, dev) < nn, ppn, 0).to(I32)
+    # call 6: the total pin count (with min_ppn == max_ppn it feeds nothing,
+    # but the draw keeps the JAX kernel's call numbering)
+    tp = torch.minimum(rng.randint(ppn * nn, max_ppn * nn, 1), total_area)
+    net_open = _iota(N, dev) < nn
+    net_counts = torch.where(net_open, ppn, 0).to(I32)
+    if max_ppn > ppn:
+        net_counts = net_counts + _extra_pins(
+            params, rng, nn, net_open, torch.clamp(tp - ppn * nn, min=0))
     num_pins = net_counts.sum(1, keepdim=True, dtype=I32)
     ncum = torch.cumsum(net_counts, 1, dtype=I32)
     iota_p = _iota(P, dev)
@@ -509,7 +561,6 @@ def rollout_chunk_reference(params: EnvParams,
     logical block ``b // block`` at row ``b % block``, as the JAX kernel's
     grid program ``b // block`` does.
     """
-    _check_covered(params)
     state = [leaves[n] for n in _LEAVES]
     B = state[0].shape[0]
     dev = state[0].device
@@ -573,29 +624,13 @@ def leaves_to_numpy(leaves: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 # What the port covers
 # ---------------------------------------------------------------------------
 
-def _unported(params: EnvParams) -> Optional[str]:
-    """The ROADMAP.md item of a kernel specialisation not ported yet."""
-    if params.has_pins and (params.max_num_pins_per_net
-                            > params.min_num_pins_per_net):
-        return ("ROADMAP.md queue 2 item 4 (softmax-normal net allocation, "
-                "max_num_pins_per_net > min_num_pins_per_net)")
-    return None
-
-
-def _check_covered(params: EnvParams) -> None:
-    reason = _unported(params)
-    if reason is not None:
-        raise NotImplementedError(
-            f"this fused-rollout specialisation is not ported yet: {reason}")
-
-
 def envelope_report(params: EnvParams) -> "tuple[bool, list]":
     """Check ``params`` against the kernel's fixed capacities
     (``KERNEL_CAPACITY``), split as the JAX ``envelope_report`` (:100-121)
     splits them: pin configs against the pin tables (and the beam width
     for the beam and "both" rewards), SQUARE / RECT against the grid and
     ``components_nopin`` only. Returns ``(ok, reasons)``, one reason per
-    violated limit, and also names an unported specialisation."""
+    violated limit."""
     sizes = {"height": params.height, "width": params.width}
     if params.has_pins:
         sizes.update({
@@ -611,9 +646,6 @@ def envelope_report(params: EnvParams) -> "tuple[bool, list]":
         sizes["components_nopin"] = params.max_components
     reasons = [f"{k}={v} > {KERNEL_CAPACITY[k]}" for k, v in sizes.items()
                if v > KERNEL_CAPACITY[k]]
-    unported = _unported(params)
-    if unported is not None:
-        reasons.append(f"not ported: {unported}")
     return not reasons, reasons
 
 
@@ -632,9 +664,10 @@ class _KernelParams(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int32) for n in (
         "height", "width", "components", "nets", "pins_per_net", "pins",
         "pins_per_component", "min_h", "max_h", "min_w", "max_w",
-        "min_c", "max_c", "min_n", "max_n", "ppn", "spatial",
+        "min_c", "max_c", "min_n", "max_n", "ppn", "max_ppn", "spatial",
         "pin_spread")] + [(n, ctypes.c_float) for n in (
-            "lam_w", "lam_i", "wl_norm", "int_norm", "penalty")] + [
+            "lam_w", "lam_i", "wl_norm", "int_norm", "penalty",
+            "net_div")] + [
         (n, ctypes.c_int32) for n in (
             "kernel", "beam_width", "component_n")]
 
@@ -655,14 +688,14 @@ def _kernel_params(params: EnvParams) -> _KernelParams:
         params.min_component_w, params.max_component_w,
         params.min_num_components, params.max_num_components,
         params.min_num_nets, params.max_num_nets,
-        params.min_num_pins_per_net,
+        params.min_num_pins_per_net, params.max_num_pins_per_net,
         int(params.variant == Variant.PIN_SPATIAL), params.pin_spread,
         float(params.weight_wirelength),
         float(params.weight_num_intersections),
         float(params.wirelength_normalizer),
         float(params.intersections_normalizer), _penalty(params),
-        KERNELS.index(kernel_name(params)), int(params.reward_beam_width),
-        params.component_n)
+        params.net_distribution + 1.0, KERNELS.index(kernel_name(params)),
+        int(params.reward_beam_width), params.component_n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -775,7 +808,6 @@ def make_fused_rollout(params: EnvParams, batch: int, num_steps: int,
     block = min(block, batch)
     ok, reasons = envelope_report(params)
     if not ok:
-        _check_covered(params)
         raise ValueError("configuration outside the fused-kernel envelope "
                          f"({'; '.join(reasons)})")
     if batch % block:

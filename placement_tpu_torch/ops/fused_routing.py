@@ -18,10 +18,10 @@ the same arithmetic, and ``chip_smoke.py`` holds the two together.
 
 The arithmetic mirrors the JAX module operation for operation: coordinates
 are small integers, so sums and squared distances are exact, ``sqrt`` is
-correctly rounded (``_sqrt``) and the crossing predicate is exact. The beam
-wirelength is accumulated in the JAX module's order (nets outer, positions
-inner), so it is bit for bit the same; only the centroid wirelength sums
-its lanes in another order.
+correctly rounded (``_f64_rounded``) and the crossing predicate is exact.
+The beam wirelength is accumulated in the JAX module's order (nets outer,
+positions inner), so it is bit for bit the same; only the centroid
+wirelength sums its lanes in another order.
 """
 
 from __future__ import annotations
@@ -44,15 +44,19 @@ def _f32(v: float) -> torch.Tensor:
     return torch.tensor(float(v), dtype=F32)
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded f32 square root, as XLA's and CUDA's ``sqrtf``.
+def _f64_rounded(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of f32 ``x`` evaluated in f64 and rounded to f32: the one
+    rounding rule of the port's ``sqrt``, ``log``, ``cos`` and ``exp``,
+    which the CUDA kernel follows too, so the plain version on any device
+    and the kernel give the same bits.
 
     PyTorch's vectorised f32 ``sqrt`` on the CPU is not correctly rounded
     (about 0.6% of inputs come out one ulp off), which can flip the
-    outlier-pin choice of a beam route; the f64 root rounded to f32 is
-    correctly rounded.
+    outlier-pin choice of a beam route; nor are XLA's, PyTorch's and CUDA's
+    f32 ``log``/``cos``/``exp``. The f64 result rounded to f32 is correctly
+    rounded (in practice), as XLA's and CUDA's ``sqrtf`` are.
     """
-    return torch.sqrt(x.double()).to(F32)
+    return fn(x.double()).to(F32)
 
 
 def _net_arrays(params: EnvParams, pax: torch.Tensor, pay: torch.Tensor,
@@ -164,7 +168,8 @@ def centroid_wl_int(params: EnvParams, pax: torch.Tensor, pay: torch.Tensor,
         svalid = svalid | (mn & ~(two & ~first))
     dx = x - x2
     dy = y - y2
-    wl = torch.where(svalid, _sqrt(dx * dx + dy * dy),
+    wl = torch.where(svalid,
+                     _f64_rounded(torch.sqrt, dx * dx + dy * dy),
                      zero).sum(dim=1, keepdim=True)
     x1s = x * s
     y1s = y * s
@@ -255,7 +260,8 @@ def _beam_net(xs: torch.Tensor, ys: torch.Tensor, present: torch.Tensor,
     cy = torch.where(present, ys, zero).sum(dim=1, keepdim=True) / denom
     dx0 = xs - cx
     dy0 = ys - cy
-    d0 = torch.where(present, _sqrt(dx0 * dx0 + dy0 * dy0),
+    d0 = torch.where(present,
+                     _f64_rounded(torch.sqrt, dx0 * dx0 + dy0 * dy0),
                      torch.tensor(-1.0, dtype=F32, device=dev))
     dmax = d0.amax(dim=1, keepdim=True)
     start = _first_where(d0 == dmax, iota_m, M)
@@ -285,7 +291,8 @@ def _beam_net(xs: torch.Tensor, ys: torch.Tensor, present: torch.Tensor,
         for k in range(bw):
             ddx = xs - curx[k]
             ddy = ys - cury[k]
-            d = torch.where(vis[k], big, _sqrt(ddx * ddx + ddy * ddy))
+            d = torch.where(vis[k], big,
+                            _f64_rounded(torch.sqrt, ddx * ddx + ddy * ddy))
             taken = torch.zeros((B, M), dtype=torch.bool, device=dev)
             for _c in range(bw):
                 eff = torch.where(taken, inf2, d)
@@ -376,7 +383,8 @@ def beam_wl_int(params: EnvParams, pax: torch.Tensor, pay: torch.Tensor,
         for t in range(M - 1):
             dx = pxs[t] - pxs[t + 1]
             dy = pys[t] - pys[t + 1]
-            wl = wl + torch.where(sv[t], _sqrt(dx * dx + dy * dy), zero)
+            wl = wl + torch.where(
+                sv[t], _f64_rounded(torch.sqrt, dx * dx + dy * dy), zero)
 
     ints = torch.zeros((B, 1), dtype=F32, device=dev)
     for n1 in range(N):

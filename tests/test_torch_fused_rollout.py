@@ -210,17 +210,25 @@ def test_fixtures_are_fresh(jax_zero_b128):
 # Wrapper contract
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name,overrides,item", [
-    ("rectangle_pin", {"min_num_pins_per_net": 2}, "item 4"),
+@pytest.mark.parametrize("name,overrides,limits", [
+    # the web app's maximum sliders, which the JAX kernel refuses too
+    # (tests/tooling/test_fused_rollout.py:182-207)
+    ("rectangle_pin", {"height": 30, "width": 30,
+                       "min_component_h": 1, "max_component_h": 5,
+                       "min_component_w": 1, "max_component_w": 5,
+                       "min_num_components": 10, "max_num_components": 40,
+                       "min_num_nets": 2, "max_num_nets": 10,
+                       "min_num_pins_per_net": 2, "max_num_pins_per_net": 10},
+     ("components=40", "nets=10", "pins=100")),
 ])
-def test_unsupported_configs_raise(name, overrides, item):
+def test_unsupported_configs_raise(name, overrides, limits):
     params = load_env_params(name).replace(**overrides)
     assert not torch_fused.supports(params)
-    with pytest.raises(NotImplementedError, match=f"queue 2 {item}"):
+    _, reasons = torch_fused.envelope_report(params)
+    for limit in limits:
+        assert any(r.startswith(limit) for r in reasons), (limit, reasons)
+    with pytest.raises(ValueError, match="envelope"):
         torch_fused.make_fused_rollout(params, 8, 5)
-    with pytest.raises(NotImplementedError, match=f"queue 2 {item}"):
-        torch_fused.rollout_chunk_reference(
-            params, torch_fused.zero_leaves(params, 8, "cpu"), 1, 5, 8)
 
 
 def test_envelope_and_argument_checks():

@@ -5,11 +5,17 @@ alone: ``python -m pytest tests/test_torch_gpu.py -q``. Without a CUDA
 device every test skips (the kernel has no CPU mode).
 """
 
+import json
+import pathlib
+
 import pytest
 import torch
 
 from placement_tpu_torch.ops import fused_rollout as torch_fused
+from placement_tpu_torch.parallel import mesh
 from placement_tpu_torch.utils.config import load_env_params
+
+FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 
 
 @pytest.fixture
@@ -91,6 +97,58 @@ def test_cuda_specialisations_match_plain_version(cuda, name, overrides,
             assert torch.equal(got_r, want_r)     # +1 per placement
         leaves = got
     assert fn.launches == 2
+
+
+def _varpin_params(name):
+    """A varying-pins-per-net config of test_torch_fused_varpin.py, read
+    from its golden (that file imports JAX)."""
+    golden = json.loads((FIXTURES / f"torch_fused_zero_b128_varpin_{name}"
+                         ".json").read_text())
+    return load_env_params(golden["config"]).replace(**golden["overrides"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["web", "parity"])
+def test_cuda_varpin_matches_plain_version(cuda, name):
+    params = _varpin_params(name)
+    assert params.max_num_pins_per_net > params.min_num_pins_per_net
+    batch, block = 512, 128
+    fn = torch_fused.make_fused_rollout(params, batch, 50, block=block,
+                                        device=cuda)
+    leaves = torch_fused.zero_leaves(params, batch, cuda)
+    for seed in (1, 2):
+        got, got_r, got_d = fn.per_board(leaves, seed)
+        want, want_r, want_d = torch_fused.rollout_chunk_reference(
+            params, leaves, seed, 50, block)
+        torch.cuda.synchronize()
+        for k in torch_fused._LEAVES:
+            assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got_d, want_d)
+        # centroid terms summed in another order (see above)
+        torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-5)
+        leaves = got
+    npins = leaves["num_pins"]
+    assert int(npins.min()) < int(npins.max())
+    assert fn.launches == 2
+
+
+@pytest.mark.gpu
+def test_cuda_shard_fused_rollout_one_rank_is_the_kernel(cuda):
+    """``shard_fused_rollout`` without a process group launches the kernel
+    once per call and gives the unsharded kernel's leaves and totals."""
+    params = _varpin_params("web")
+    sharded = mesh.shard_fused_rollout(params, 1024, 50, block=256,
+                                       device=cuda)
+    plain = torch_fused.make_fused_rollout(params, 1024, 50, block=256,
+                                           device=cuda)
+    got = want = torch_fused.zero_leaves(params, 1024, cuda)
+    for seed in (5, 6):
+        got, got_r, got_d = sharded(got, seed)
+        want, want_r, want_d = plain(want, seed)
+        for k in torch_fused._LEAVES:
+            assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got_r, want_r) and torch.equal(got_d, want_d)
+    assert sharded.local.launches == plain.launches == 2
 
 
 @pytest.mark.gpu
