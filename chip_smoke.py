@@ -22,8 +22,8 @@ entry points a user calls:
 
 Phases (any failure raises and the exit code is not 0):
   1. device  — requires CUDA; prints the card and its power limit
-  2. build   — nvcc builds ops/csrc/*.cu into build/torch_kernels/ and
-     reports ``ptxas -v`` for every instantiation
+  2. build   — one nvcc per ops/csrc/*.cu, all at once, linked into
+     build/torch_kernels/; reports ``ptxas -v`` for every kernel
   3. TPU hardware goldens — k7 start, 128 boards, seed 1234, block 128: the
      rows of experiments/results/fused_hw_validation.json
   4. JAX goldens — zero start, 128 boards, seed 1234 (the varying-pins
@@ -31,7 +31,9 @@ Phases (any failure raises and the exit code is not 0):
      recorded from the JAX kernel (tests/fixtures)
   5. kernel vs plain PyTorch on the card for every fused row of the matrix
      (its config and block) and both varying-pins configs at 4096 boards,
-     50 steps; times of both
+     50 steps, and the centroid kernel at 1004 boards (a partial CUDA
+     block); times of both, the kernel's after a warm-up of the card; the
+     centroid kernel's time at 1024, 4096 and 16384 boards
   6. main path 1, timed; the kernel's launch count must equal the calls
   7. main path 2, the matrix; launch counts set to 0 before and read after:
      every specialisation must have launched
@@ -40,8 +42,11 @@ Phases (any failure raises and the exit code is not 0):
      ranks' leaves equal to the one-process kernel on its shard at seed +
      rank, and the reduced totals to the sums of the ranks' own
 
-The second-to-last line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+Every timed window follows at least ``WARM_S`` seconds of chained launches:
+a card fresh from idle runs its first ~50 ms slower while its clock ramps.
+
+The second-to-last line is the kernels' JSON record, each with its bound
+(``_chunk_bound``); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import hashlib
@@ -59,6 +64,9 @@ TIMED_CHUNKS = 20
 #: per 128 boards: board reward sums are added in another order than the
 #: reference's (a few f32 ulps of ~1e3, ulp(1024) = 1.2e-4)
 RSUM_TOL_PER_128 = 2e-3
+#: the TPU centroid golden's own tolerance (tests/tooling/
+#: test_fused_rollout.py:247-276)
+HW_CENTROID_TOL = 5e-4
 #: the TPU's beam and "both" goldens: Mosaic's f32 division rounds the
 #: outlier pin's centroid differently (test_fused_rollout.py:252-256)
 BEAM_HW_TOL = 0.5
@@ -92,6 +100,24 @@ JAX_GOLDENS = {
 }
 #: main path 3's ranks: chained seeds
 RANK_SEEDS = (1, 2)
+#: the centroid kernel (one warp per board, 8 boards per CUDA block) at a
+#: batch that leaves a partial CUDA block, and its logical block
+PARTIAL_BATCH, PARTIAL_BLOCK = 1004, 4
+#: boards at which the centroid kernel is timed for its scaling
+SCALING_BATCHES = (1024, 4096, 16384)
+#: seconds of chained launches before every timed window
+WARM_S = 0.5
+#: kernel sources, by specialisation
+SOURCES = {k: "placement_tpu_torch/ops/csrc/fused_rollout.cu"
+           for k in KERNELS}
+SOURCES["centroid"] = "placement_tpu_torch/ops/csrc/fused_rollout_warp.cu"
+
+#: an H100 SXM's rates (NVIDIA's data sheet and Hopper white paper): HBM3
+#: bytes/s; non-tensor instructions, 128 lanes an SM a clock over 132 SMs
+#: at the 1.98 GHz boost clock, of which 64 lanes may be integer
+HBM_BYTES_S = 3.35e12
+LANE_OPS_S = 132 * 128 * 1.98e9
+INT_OPS_S = 132 * 64 * 1.98e9
 
 
 def _check(cond, what):
@@ -144,6 +170,8 @@ def phase_build():
                       r"(\d)E", line)
         if m:
             label = fused_rollout.KERNELS[int(m.group(1))]
+        elif "Compiling entry function" in line and "warp_kernel" in line:
+            label = "centroid (one warp per board)"
         elif "registers" in line or "spill" in line or "stack frame" in line:
             print(f"[build] {label}: {line.strip()}")
 
@@ -162,7 +190,7 @@ def phase_hw_golden(kernel):
     print(f"[hw golden] {kernel}: episodes {dcnt} (TPU {hw['episodes']}), "
           f"reward sum {rsum!r} (TPU {hw['reward_sum']}, diff {diff!r})")
     _check(dcnt == hw["episodes"], f"{kernel} hardware golden episodes")
-    tol = {"centroid": RSUM_TOL_PER_128, "beam": BEAM_HW_TOL,
+    tol = {"centroid": HW_CENTROID_TOL, "beam": BEAM_HW_TOL,
            "both": BEAM_HW_TOL}.get(kernel, 0.0)
     _check(abs(diff) <= tol, f"{kernel} hardware golden reward sum")
 
@@ -197,9 +225,23 @@ def phase_jax_golden(name):
     return want
 
 
-def _kernel_ms(fn, leaves, seed, n):
-    """Mean ms per chunk over n chained launches (CUDA events)."""
+def _warm(fn, leaves, seed=10**6):
+    """Chained launches of ``fn`` for at least ``WARM_S`` seconds, so that
+    the card's clock has ramped up before a timed window."""
     import torch
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < WARM_S:
+        for _ in range(10):
+            leaves, _, _ = fn.per_board(leaves, seed)
+            seed += 1
+        torch.cuda.synchronize()
+
+
+def _kernel_ms(fn, leaves, seed, n):
+    """Mean ms per chunk over n chained launches (CUDA events), after a
+    warm-up."""
+    import torch
+    _warm(fn, leaves)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for i in range(n):
@@ -219,16 +261,85 @@ def _plain_ms(params, leaves, seed, block):
     return (time.perf_counter() - t0) * 1e3
 
 
-def phase_kernel_vs_plain(label, params, block):
-    """The kernel against its plain version on ``params`` at 4096 boards
-    and logical ``block``; returns (max abs error, kernel ms per chunk,
-    plain ms per chunk)."""
+def _route_pairs(params, leaves):
+    """Per board, averaged over ``leaves``: the pins in use, and the segment
+    pairs each routing reward tests for a crossing. Both test only pairs on
+    different nets. The centroid route has a segment per pin, but one for a
+    2-pin net; the beam route has ``min(count, M) - 1`` per net. Returns
+    (pins, centroid pairs, beam pairs)."""
+    import torch
+    N, M = params.max_num_nets, params.max_num_pins_per_net
+    net = leaves["pin_net"].long()
+    slot = torch.arange(net.shape[1], device=net.device)
+    ok = (slot < leaves["num_pins"]) & (net >= 0) & (net < N)
+    cnt = torch.zeros(net.shape[0], N + 1, dtype=torch.int64,
+                      device=net.device)
+    cnt.scatter_add_(1, torch.where(ok, net, N), torch.ones_like(net))
+    cnt = cnt[:, :N]
+
+    def pairs(seg):
+        return float(((seg.sum(1) ** 2 - (seg * seg).sum(1)) // 2)
+                     .double().mean())
+
+    return (float(ok.sum(1).double().mean()),
+            pairs(torch.where(cnt == 2, 1, cnt)),
+            pairs((cnt.clamp(max=M) - 1).clamp(min=0)))
+
+
+def _chunk_bound(params, batch, steps, episodes, leaves):
+    """The least time the card could take for one chunk: bytes (every leaf
+    read once and written once, plus the per-board sums) over the HBM rate,
+    or the operations the kernel's code does for this data over the
+    instruction rates, whichever is larger. Operations are counted from the
+    code (a model, not a measurement): per board-step the action sampling, the
+    paint, the pin rotation and the next legality planes; per episode
+    (``episodes`` of this run, pins and crossing tests as on ``leaves``'
+    boards, ``_route_pairs``) the generator and the routing reward. Returns
+    (ms, "bytes" or "operations", operations, bytes)."""
+    from placement_tpu_torch.ops import fused_rollout as fr
+    H, C, N = params.height, params.max_components, params.max_num_nets
+    M, PPC = params.max_num_pins_per_net, params.max_num_pins_per_component
+    fp = max(params.max_component_h, params.max_component_w)
+    kernel = fr.kernel_name(params)
+    planes = 1 if kernel == "square" else 2
+    step = planes * H * (2 * fp + 6) + 3 * H + 40 + fp
+    gen = 10 * C
+    route_int = route_fp = 0.0
+    if params.has_pins:
+        pins, centroid_pairs, beam_pairs = _route_pairs(params, leaves)
+        step += 10 * params.max_pins
+        gen = (N * (4 * C * C + 4 * M * C + 20) + 2 * C * PPC * PPC
+               + pins * (N + 15) + 20 * C)
+        if params.max_num_pins_per_net > params.min_num_pins_per_net:
+            span = params.max_num_pins_per_net - params.min_num_pins_per_net
+            gen += 60 * N + span * N * N
+        if kernel in ("centroid", "both"):
+            route_int += 20 * pins + 10 * N
+            route_fp += 35 * centroid_pairs
+        if kernel in ("beam", "both"):
+            bw = int(params.reward_beam_width)
+            rounds = max(pins / N - 1, 0)
+            route_int += N * rounds * bw * (6 * M + 2 * bw * M + 8 * bw * bw)
+            route_fp += 35 * beam_pairs
+    ops_int = batch * steps * step + episodes * (gen + route_int)
+    ops_fp = episodes * route_fp
+    nbytes = 2 * 4 * batch * sum(fr.leaf_widths(params).values()) + 8 * batch
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(ops_int / INT_OPS_S, (ops_int + ops_fp) / LANE_OPS_S)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, ops_int + ops_fp, nbytes
+
+
+def phase_kernel_vs_plain(label, params, block, batch=BATCH):
+    """The kernel against its plain version on ``params`` at ``batch``
+    boards and logical ``block``, two chained chunks; returns (max abs
+    error, kernel ms per chunk, plain ms per chunk, bound ms, bound_by)."""
     import torch
     from placement_tpu_torch.ops import fused_rollout as fr
     label += f" ({fr.kernel_name(params)} kernel)"
-    fn = fr.make_fused_rollout(params, BATCH, STEPS, block=block,
+    fn = fr.make_fused_rollout(params, batch, STEPS, block=block,
                                device="cuda")
-    leaves = fr.zero_leaves(params, BATCH, "cuda")
+    leaves = fr.zero_leaves(params, batch, "cuda")
     leaf_err = board_err = 0.0
     for seed in (1, 2):        # from zero boards, then from mid-run boards
         got, got_r, got_d = fn.per_board(leaves, seed)
@@ -241,7 +352,7 @@ def phase_kernel_vs_plain(label, params, block):
             for k in fr._LEAVES))
         err = float((got_r - want_r).abs().max())
         board_err = max(board_err, err)
-        print(f"[kernel vs plain] {label}: {BATCH} boards, block {block}, "
+        print(f"[kernel vs plain] {label}: {batch} boards, block {block}, "
               f"{STEPS} steps, seed {seed}: leaves differing {bad}, done "
               f"counts equal {torch.equal(got_d, want_d)}, max |board "
               f"reward diff| {err!r} (equal: {torch.equal(got_r, want_r)}),"
@@ -254,14 +365,34 @@ def phase_kernel_vs_plain(label, params, block):
         else:
             _check(torch.equal(got_r, want_r), f"{label}: rewards differ")
         leaves = got
+    err = max(leaf_err, board_err)
+    # the bound of the second chunk (from mid-run boards) on its own data
+    bound_ms, bound_by, ops, nbytes = _chunk_bound(
+        params, batch, STEPS, int(got_d.sum()), leaves)
     # in turns: plain, kernel, kernel, plain
     plain = [_plain_ms(params, leaves, 3, block)]
     kernel_ms = [_kernel_ms(fn, leaves, 10, TIMED_CHUNKS),
                  _kernel_ms(fn, leaves, 100, TIMED_CHUNKS)]
     plain.append(_plain_ms(params, leaves, 4, block))
     print(f"[kernel vs plain] {label}: ms per {STEPS}-step chunk: kernel "
-          f"{kernel_ms!r}, plain {plain!r}")
-    return max(leaf_err, board_err), min(kernel_ms), min(plain)
+          f"{kernel_ms!r}, plain {plain!r}; bound {bound_ms!r} ms by "
+          f"{bound_by} ({ops!r} operations, {nbytes} bytes); share of "
+          f"bound (bound / kernel ms) {bound_ms / min(kernel_ms)!r}")
+    return err, min(kernel_ms), min(plain), bound_ms, bound_by
+
+
+def phase_batch_scaling(params, block):
+    """The centroid kernel's ms per chunk on ``params`` at several batches
+    (from mid-run boards, after a warm-up): flat means latency-bound, in
+    proportion to the boards means throughput-bound."""
+    from placement_tpu_torch.ops import fused_rollout as fr
+    for batch in SCALING_BATCHES:
+        fn = fr.make_fused_rollout(params, batch, STEPS, block=block,
+                                   device="cuda")
+        leaves, _, _ = fn.per_board(fr.zero_leaves(params, batch, "cuda"), 1)
+        ms = [_kernel_ms(fn, leaves, 10 * i, TIMED_CHUNKS) for i in (1, 2)]
+        print(f"[batch] {fn.kernel} kernel, {batch} boards: ms per chunk "
+              f"{ms!r}, {batch * STEPS / min(ms) * 1e3!r} env-steps/s")
 
 
 def phase_main_path(params, ref_mean):
@@ -272,6 +403,7 @@ def phase_main_path(params, ref_mean):
     fn = fr.make_fused_rollout(params, BATCH, STEPS, block=BLOCK,
                                device="cuda")
     leaves = fr.zero_leaves(params, BATCH, "cuda")
+    _warm(fn, leaves)
     counter = 1
     fn.launches = 0
     leaves, racc, _ = fn(leaves, counter)
@@ -364,6 +496,7 @@ def phase_sharded(params, block, ref_mean):
         return [k for k in fr._LEAVES if not torch.equal(a[k], b[k])]
 
     zero = fr.zero_leaves(params, BATCH, "cuda")
+    _warm(fn.local, zero)
     fn.local.launches = 0
     leaves, racc, _ = fn(zero, 1)
     bad = same(leaves, ref(zero, 1)[0])
@@ -445,15 +578,21 @@ def main():
     goldens = {g: phase_jax_golden(g) for g in JAX_GOLDENS}
     results = {row: phase_kernel_vs_plain(row, *_row(row))
                for row in bm.FUSED_ROWS}
+    phase_batch_scaling(*_row("pin_centroid"))
+    # the centroid kernel with a partial CUDA block
+    partial_err = phase_kernel_vs_plain(
+        "pin_centroid partial block", _row("pin_centroid")[0], PARTIAL_BLOCK,
+        batch=PARTIAL_BATCH)[0]
     # the beam at its capacity width
     params, block = _row("pin_beam")
-    err4, ms4, plain4 = phase_kernel_vs_plain(
+    err4, ms4, plain4, *_ = phase_kernel_vs_plain(
         "pin_beam bw=4", params.replace(reward_beam_width=4), block)
     for config, block in VARPIN.items():
         results[config] = phase_kernel_vs_plain(
             config, _golden_params(goldens[config]), block)
     hw = json.loads(HW_GOLDENS.read_text())
-    phase_main_path(_row("pin_centroid")[0], hw["centroid"]["mean_reward"])
+    launches_1, _ = phase_main_path(_row("pin_centroid")[0],
+                                    hw["centroid"]["mean_reward"])
     # references of the pin rows' mean episode reward: the TPU goldens'
     # (640 episodes each), and for the spatial config, which has none, the
     # JAX kernel's routed episodes from zero boards (768 episodes, of which
@@ -468,39 +607,49 @@ def main():
         / (spatial["done_count"] - spatial["batch"]),
     }
     launches = phase_matrix(ref_means)
+    launches["centroid"] += launches_1       # main path 1 runs it too
     web = goldens["varpin_web"]
     pen = fr._penalty(_golden_params(web))
     launches["varpin"], rate3 = phase_sharded(
         _golden_params(web), VARPIN["varpin_web"],
         (web["reward_sum"] - web["batch"] * pen)
         / (web["done_count"] - web["batch"]))
+    # no one PyTorch call computes a chunk: library_ms is null
     entries = []
     for k, (row, *_, replaces) in KERNELS.items():
-        err, ms, plain_ms = results[row]
+        err, ms, plain_ms, bound_ms, bound_by = results[row]
+        if k == "centroid":
+            err = max(err, partial_err)
         entries.append({
             "name": f"fused_rollout_{k}",
             "route": "cuda",
-            "source": "placement_tpu_torch/ops/csrc/fused_rollout.cu",
+            "source": SOURCES[k],
             "replaces": f"placement_tpu/ops/fused_rollout.py:866 "
                         f"({replaces})",
             "launches": launches[k],
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
         })
-    # the varying-pins branch on main path 3's config; the error is the
-    # larger of both configs'
-    err, ms, plain_ms = results["varpin_web"]
+    # the varying-pins branch on main path 3's config (the centroid
+    # kernel); the error is the larger of both configs'
+    err, ms, plain_ms, bound_ms, bound_by = results["varpin_web"]
     entries.append({
         "name": "fused_rollout_varpin",
         "route": "cuda",
-        "source": "placement_tpu_torch/ops/csrc/fused_rollout.cu",
+        "source": SOURCES["centroid"],
         "replaces": "placement_tpu/ops/fused_rollout.py:866 (PIN, max_ppn "
                     "> min_ppn, :399-450)",
         "launches": launches["varpin"],
         "max_abs_err": max(err, results["varpin_parity"][0]),
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
     })
     print(f"[kernel vs plain] beam bw=4: max abs err {err4!r}, kernel "
           f"{ms4!r} ms, plain {plain4!r} ms")

@@ -39,13 +39,16 @@ def dryrun_params() -> EnvParams:
         **DRYRUN_OVERRIDES).validate()
 
 
-def dryrun_multigpu(n_ranks: int) -> List[Any]:
+def dryrun_multigpu(n_ranks: int, device: str = "cuda") -> List[Any]:
     """One 4-step chunk of ``4 * n_ranks`` all-done zero boards, seed 11,
-    sharded over ``n_ranks`` spawned ranks: on the GPUs when CUDA is
-    present (ranks beyond the card count share cards), else on the CPU.
-    Raises unless the reduced reward is finite; returns the ranks'
+    sharded over ``n_ranks`` spawned ranks on ``device``: by default the
+    GPUs (ranks beyond the card count share cards); ``"cpu"`` runs the
+    ranks on the CPU. Raises without a CUDA device unless the CPU is asked
+    for, and unless the reduced reward is finite; returns the ranks'
     results (``mesh.rollout_rank``)."""
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("dryrun_multigpu: no CUDA device; pass "
+                           "device='cpu' to run the ranks on the CPU")
     results = mesh.spawn_ranks(
         mesh.rollout_rank, n_ranks,
         args=(dryrun_params(), 4 * n_ranks, 4, 128, [11], device),

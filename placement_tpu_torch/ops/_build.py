@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Every ``ops/csrc/*.cu`` file is compiled into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds). The
+Every ``ops/csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). The
 library lands in ``build/torch_kernels/`` at the root of the checkout, named
 by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is reused. Nothing here imports a CUDA-only module, so the
@@ -26,8 +27,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kerne
 #: IEEE division and sqrt are nvcc's defaults; ``-fmad=false`` keeps FMA
 #: contraction from changing the rounding of the routing reward, so the
 #: kernel rounds exactly as the plain PyTorch version does.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
               "-Xcompiler", "-fPIC")
 
 
@@ -61,23 +62,44 @@ def _nvcc() -> str:
 
 def build() -> Tuple[pathlib.Path, float]:
     """Compile the sources unless this hash is built; returns the library
-    path and the seconds spent compiling (0.0 when reused). The compiler's
-    output (``-Xptxas=-v``: registers, spills) is kept beside the library
-    as ``<name>.log``."""
+    path and the seconds spent compiling (0.0 when reused). The compilers'
+    output (``-Xptxas=-v``: registers, spills, stack frames) is kept beside
+    the library as ``<name>.log``."""
     lib = library_path()
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_suffix(f".{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+                *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    lib.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, lib)
     return lib, seconds
 

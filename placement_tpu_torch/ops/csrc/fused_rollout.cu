@@ -3,9 +3,11 @@
 // Replaces the Pallas TPU kernel of placement_tpu/ops/fused_rollout.py
 // (make_fused_rollout's pl.pallas_call, kernel body _build_kernel). The TPU
 // kernel is specialised at trace time; here each specialisation is one
-// instantiation of the template fused_rollout_kernel<K> (enum Kernel):
-//   K_CENTROID, K_BEAM, K_BOTH  PIN / PIN_SPATIAL with the centroid, beam or
-//       "both" routing reward (placement_tpu/ops/fused_routing.py); when
+// instantiation of the template fused_rollout_kernel<K> (enum Kernel in
+// fused_common.cuh), except K_CENTROID, which runs one warp per board
+// (fused_rollout_warp.cu; fused_rollout_launch below dispatches to it):
+//   K_BEAM, K_BOTH  PIN / PIN_SPATIAL with the beam or "both" routing
+//       reward (placement_tpu/ops/fused_routing.py); when
 //       max_num_pins_per_net > min_num_pins_per_net their generator also
 //       runs the softmax-normal net allocation (extra_pins), a branch on
 //       the parameters that every board of a launch takes alike;
@@ -14,9 +16,9 @@
 // Each thread runs the whole num_steps chunk of its board: random
 // legal-action sampling, placement (and pin rotation), the next legality
 // planes, the done test, the reward, and on episode end the regeneration of
-// a fresh instance. Specialising at compile time keeps the beam state and
-// the 64-entry component tables of the reduced kernels out of the centroid
-// instantiation's stack frame.
+// a fresh instance. Specialising at compile time keeps the beam state out
+// of the reduced kernels' stack frames and their 64-entry component tables
+// out of the pin kernels'.
 //
 // What bounds it on an H100: per-board integer work and local-memory
 // traffic, not device-memory bandwidth. A chunk reads and writes each
@@ -57,72 +59,11 @@
 
 #include <type_traits>
 
+#include "fused_common.cuh"
+
 namespace {
 
-constexpr int MAX_H = 32;     // grid rows are 32-bit masks
-constexpr int MAX_W = 32;
-constexpr int MAX_C = 8;      // components
-constexpr int MAX_N = 8;      // nets
-constexpr int MAX_M = 16;     // pins per net
-constexpr int MAX_P = 48;     // pin-table length
-constexpr int MAX_PPC = 16;   // pins (cells) per component
-constexpr int MAX_C_NOPIN = 64;  // components of SQUARE / RECT boards
-constexpr int MAX_BW = 4;     // beam width
 constexpr int THREADS = 128;
-
-// The kernel's specialisations; KERNELS in fused_rollout.py names them.
-enum Kernel { K_CENTROID = 0, K_BEAM = 1, K_BOTH = 2, K_SQUARE = 3,
-              K_RECT = 4 };
-
-static_assert(MAX_W <= 32, "a grid row must fit one 32-bit mask");
-static_assert(MAX_H * MAX_W <= (1 << 24), "cell counts must be exact in f32");
-static_assert(MAX_N * MAX_M <= 256, "per-net allocation table size");
-static_assert(MAX_C * MAX_PPC <= 256, "per-component cell table size");
-static_assert(MAX_M <= 32, "a net's visited pins must fit one 32-bit mask");
-static_assert(MAX_BW * MAX_BW <= 32, "beam candidates must fit one mask");
-
-}  // namespace
-
-extern "C" {
-
-// Mirrored by _KernelParams in placement_tpu_torch/ops/fused_rollout.py.
-struct FusedRolloutParams {
-  int32_t height, width;
-  int32_t components, nets, pins_per_net, pins, pins_per_component;
-  int32_t min_h, max_h, min_w, max_w;
-  int32_t min_c, max_c, min_n, max_n;
-  int32_t ppn;          // min pins per net
-  int32_t max_ppn;      // max pins per net: > ppn runs extra_pins
-  int32_t spatial;      // PIN_SPATIAL's k0 formula
-  int32_t pin_spread;
-  float lam_w, lam_i, wl_norm, int_norm, penalty;
-  float net_div;        // net_distribution + 1
-  int32_t kernel;       // enum Kernel
-  int32_t beam_width;   // K_BEAM, K_BOTH
-  int32_t component_n;  // K_SQUARE's n x n footprint
-};
-
-// One device pointer per leaf, in the order of _LEAVES.
-struct FusedRolloutLeaves {
-  float* grid;
-  int32_t* comp_h;
-  int32_t* comp_w;
-  int32_t* cursor;
-  int32_t* num_components;
-  int32_t* pin_rel_x;
-  int32_t* pin_rel_y;
-  int32_t* pin_abs_x;
-  int32_t* pin_abs_y;
-  int32_t* pin_net;
-  int32_t* pin_comp;
-  int32_t* num_pins;
-  float* plane0;
-  float* plane1;
-};
-
-}  // extern "C"
-
-namespace {
 
 struct Masks {
   uint32_t grid[MAX_H];            // bit y of row x = cell x*W + y occupied
@@ -145,35 +86,6 @@ struct NopinBoard : Masks {
   int32_t cur, numc;
   bool fresh;
 };
-
-// ---- counter-hash PRNG (fused_rollout.py _mix / _Rng) -------------------
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
-
-struct Rng {
-  uint32_t salt;  // mixed
-  uint32_t row;   // board index within its logical block
-
-  // Element (row, col) of the n-th draw of shape (block, width).
-  __device__ float uniform(uint32_t n, uint32_t width, uint32_t col) const {
-    const uint32_t call = n * 2654435761u;
-    const uint32_t bits = mix32((row * width + col) ^ mix32(call ^ salt));
-    return (float)(bits >> 8) * (1.0f / 16777216.0f);
-  }
-};
-
-__device__ __forceinline__ int randint(int lo, int hi, float u) {
-  const int span = hi - lo + 1;
-  const int draw = (int)floorf(u * (float)span);
-  return lo + min(draw, span - 1);
-}
 
 // ---- legality planes (planes_for) ----------------------------------------
 
@@ -255,20 +167,6 @@ __device__ __forceinline__ int comp_at(const int32_t* t, int i, int C) {
 }
 
 // ---- centroid routing reward (fused_routing.centroid_wl_int) -------------
-
-__device__ bool seg_intersect(float ax1, float ay1, float ax2, float ay2,
-                              float bx1, float by1, float bx2, float by2) {
-  const bool same = (ax1 == bx1 && ay1 == by1) || (ax1 == bx2 && ay1 == by2) ||
-                    (ax2 == bx1 && ay2 == by1) || (ax2 == bx2 && ay2 == by2);
-  const float det = (ax1 - ax2) * (by1 - by2) - (ay1 - ay2) * (bx1 - bx2);
-  const float o1 = (ax2 - ax1) * (by1 - ay1) - (ay2 - ay1) * (bx1 - ax1);
-  const float o2 = (ax2 - ax1) * (by2 - ay1) - (ay2 - ay1) * (bx2 - ax1);
-  const float o3 = (bx2 - bx1) * (ay1 - by1) - (by2 - by1) * (ax1 - bx1);
-  const float o4 = (bx2 - bx1) * (ay2 - by1) - (by2 - by1) * (ax2 - bx1);
-  const bool opp_b = (o1 >= 0.f && o2 <= 0.f) || (o1 <= 0.f && o2 >= 0.f);
-  const bool opp_a = (o3 >= 0.f && o4 <= 0.f) || (o3 <= 0.f && o4 >= 0.f);
-  return same || (det != 0.f && opp_b && opp_a);
-}
 
 // Centroid-route wirelength and crossing count of the board's pin tables.
 __device__ void centroid_wl_int(const FusedRolloutParams& p, const Board& b,
@@ -553,14 +451,16 @@ __device__ void beam_wl_int(const FusedRolloutParams& p, const Board& b,
 }
 
 // The routed terminal reward of the kernel's reward type (reward_rows);
-// "both" takes the route with fewer crossings, a tie goes to beam.
+// "both" takes the route with fewer crossings, a tie goes to beam. The
+// centroid reward alone is fused_rollout_warp.cu's.
 template <int K>
 __device__ float routed_reward(const FusedRolloutParams& p, const Board& b) {
+  static_assert(K == K_BEAM || K == K_BOTH, "beam or both only");
   float wl = 0.f, c_wl = 0.f;
   int ints = 0, c_ints = 0;
-  if (K == K_CENTROID || K == K_BOTH) centroid_wl_int(p, b, c_wl, c_ints);
-  if (K == K_BEAM || K == K_BOTH) beam_wl_int(p, b, wl, ints);
-  if (K == K_CENTROID || (K == K_BOTH && ints > c_ints)) {
+  if (K == K_BOTH) centroid_wl_int(p, b, c_wl, c_ints);
+  beam_wl_int(p, b, wl, ints);
+  if (K == K_BOTH && ints > c_ints) {
     wl = c_wl;
     ints = c_ints;
   }
@@ -997,11 +897,11 @@ fused_rollout_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
 
   Rng rng;
   rng.row = (uint32_t)(bi % block);
-  const uint32_t blk_salt = seed ^ ((uint32_t)(bi / block) * 0x9e3779b9u);
+  const uint32_t blk_salt = block_salt(bi, block, seed);
   float rsum = 0.0f;
   int dcnt = 0;
   for (int t = 0; t < num_steps; ++t) {
-    rng.salt = mix32(blk_salt ^ ((uint32_t)t * 0x85ebca6bu));
+    rng.salt = step_salt(blk_salt, t);
     if constexpr (kPins)
       step<K>(p, rng, bd, rsum, dcnt);
     else
@@ -1079,10 +979,9 @@ int fused_rollout_launch(const FusedRolloutParams* params,
                          uint32_t seed, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   switch (params->kernel) {
-    case K_CENTROID:
-      launch<K_CENTROID>(*params, *in, *out, rsum, dcnt, batch, num_steps,
-                         block, seed, st);
-      break;
+    case K_CENTROID:  // one warp per board, fused_rollout_warp.cu
+      return fused_rollout_warp_launch(*params, *in, *out, rsum, dcnt,
+                                       batch, num_steps, block, seed, st);
     case K_BEAM:
       launch<K_BEAM>(*params, *in, *out, rsum, dcnt, batch, num_steps, block,
                      seed, st);

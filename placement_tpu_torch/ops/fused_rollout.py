@@ -801,7 +801,7 @@ class FusedRollout:
 
 def make_fused_rollout(params: EnvParams, batch: int, num_steps: int,
                        block: int = 128,
-                       device: Device = "cpu") -> FusedRollout:
+                       device: Device = "cuda") -> FusedRollout:
     """Build ``fn(leaves, seed) -> (leaves', reward_sum, done_count)``, the
     JAX ``make_fused_rollout`` contract (:809-887), for leaves on
     ``device``."""

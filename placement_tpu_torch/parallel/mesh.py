@@ -87,7 +87,7 @@ class _ShardedRollout:
 
 def shard_fused_rollout(params: EnvParams, batch: int, num_steps: int,
                         block: int = 128,
-                        device: fused_rollout.Device = "cpu"
+                        device: fused_rollout.Device = "cuda"
                         ) -> _ShardedRollout:
     """The fused rollout over the ranks of the current process group (one
     rank without a group), the JAX ``shard_fused_rollout`` (:103-145):
@@ -157,7 +157,7 @@ def chain_chunks(fn: _ShardedRollout, state: Dict[str, torch.Tensor],
 
 def rollout_rank(rank: int, world: int, params: EnvParams, batch: int,
                  num_steps: int, block: int, seeds: Sequence[int],
-                 device: str = "cpu") -> Dict[str, Any]:
+                 device: str = "cuda") -> Dict[str, Any]:
     """One rank of a sharded run (a ``spawn_ranks`` worker): this rank's
     ``batch // world`` all-done zero boards through ``shard_fused_rollout``
     (``chain_chunks``). A CUDA rank takes card ``rank % device_count``."""

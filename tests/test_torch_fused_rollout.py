@@ -66,7 +66,8 @@ def _jax_run(name, leaves, seed, steps, block):
 def _port_run(name, leaves, seed, steps, block):
     params = load_env_params(name)
     batch = leaves["grid"].shape[0]
-    fn = torch_fused.make_fused_rollout(params, batch, steps, block=block)
+    fn = torch_fused.make_fused_rollout(params, batch, steps, block=block,
+                                        device="cpu")
     out, rsum, dcnt = fn(torch_fused.leaves_from_numpy(leaves, "cpu"), seed)
     assert fn.launches == 0   # CPU tensors take the plain version
     return torch_fused.leaves_to_numpy(out), float(rsum), int(dcnt)
@@ -228,7 +229,7 @@ def test_unsupported_configs_raise(name, overrides, limits):
     for limit in limits:
         assert any(r.startswith(limit) for r in reasons), (limit, reasons)
     with pytest.raises(ValueError, match="envelope"):
-        torch_fused.make_fused_rollout(params, 8, 5)
+        torch_fused.make_fused_rollout(params, 8, 5, device="cpu")
 
 
 def test_envelope_and_argument_checks():
@@ -242,10 +243,12 @@ def test_envelope_and_argument_checks():
     assert any(r.startswith("height=40") for r in reasons)
     assert any(r.startswith("components=9") for r in reasons)
     with pytest.raises(ValueError, match="envelope"):
-        torch_fused.make_fused_rollout(params.replace(width=33), 8, 5)
+        torch_fused.make_fused_rollout(params.replace(width=33), 8, 5,
+                                       device="cpu")
     with pytest.raises(ValueError, match="divisible"):
-        torch_fused.make_fused_rollout(params, 12, 5, block=8)
-    fn = torch_fused.make_fused_rollout(params, 8, 5)
+        torch_fused.make_fused_rollout(params, 12, 5, block=8,
+                                       device="cpu")
+    fn = torch_fused.make_fused_rollout(params, 8, 5, device="cpu")
     leaves = torch_fused.zero_leaves(params, 8, "cpu")
     with pytest.raises(ValueError, match="grid"):
         fn({**leaves, "grid": leaves["grid"].double()}, 1)
@@ -270,7 +273,7 @@ def test_envelope_rejects_over_capacity(name, overrides, reason):
     ok, reasons = torch_fused.envelope_report(params)
     assert not ok and reason in reasons, reasons
     with pytest.raises(ValueError, match=reason):
-        torch_fused.make_fused_rollout(params, 8, 5)
+        torch_fused.make_fused_rollout(params, 8, 5, device="cpu")
 
 
 def test_envelope_splits_pin_and_reduced_capacities():
@@ -296,7 +299,8 @@ def test_envelope_splits_pin_and_reduced_capacities():
 def test_call_sums_per_board_results():
     params = load_env_params("rectangle_pin")
     leaves = torch_fused.zero_leaves(params, 16, "cpu")
-    fn = torch_fused.make_fused_rollout(params, 16, 12, block=8)
+    fn = torch_fused.make_fused_rollout(params, 16, 12, block=8,
+                                        device="cpu")
     new, rsum, dcnt = fn(leaves, 3)
     new_b, rsum_b, dcnt_b = fn.per_board(leaves, 3)
     _assert_leaves_equal(torch_fused.leaves_to_numpy(new),
@@ -306,12 +310,66 @@ def test_call_sums_per_board_results():
     assert fn.launches == 0
 
 
+def test_default_device_is_the_card():
+    """Without a device the wrapper is built for the card: CPU leaves are
+    refused by the leaf-device check, never run on the CPU."""
+    params = load_env_params("rectangle_pin")
+    fn = torch_fused.make_fused_rollout(params, 8, 5)
+    assert fn.device.type == "cuda"
+    with pytest.raises(ValueError, match="expected cuda"):
+        fn(torch_fused.zero_leaves(params, 8, "cpu"), 1)
+    assert fn.launches == 0
+
+
 def test_kernel_build_is_keyed_on_sources():
     names = [p.name for p in _build.sources()]
-    assert "fused_rollout.cu" in names
+    for name in ("fused_rollout.cu", "fused_rollout_warp.cu",
+                 "fused_common.cuh"):
+        assert name in names
     assert _build.source_hash() in _build.library_path().name
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert not any("fast" in f for f in _build.NVCC_FLAGS)
+
+
+def test_kernel_build_runs_one_nvcc_per_source(tmp_path, monkeypatch):
+    """Each .cu is compiled by its own nvcc (all started together), then
+    the objects are linked into the library; the compilers' output is
+    kept beside it and no object is left behind."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\necho "$@" >> ' + str(calls) + '\n'
+                    'out=""; prev=""\n'
+                    'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; '
+                    'prev="$a"; done\n'
+                    'echo "ptxas info: $out"\ntouch "$out"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    lib, _ = _build.build()
+    cus = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    lines = calls.read_text().splitlines()
+    assert len(lines) == len(cus) + 1
+    assert sorted(line.split()[-1].rsplit("/", 1)[-1]
+                  for line in lines[:-1]) == cus
+    assert all("-c" in line.split() and "-fmad=false" in line.split()
+               for line in lines[:-1])
+    assert "-shared" in lines[-1].split()
+    assert lib.exists() and lib.with_suffix(".log").read_text().count(
+        "ptxas info") == len(cus)
+    assert sorted(p.name for p in lib.parent.iterdir()) == sorted(
+        [lib.name, lib.with_suffix(".log").name])
+    assert _build.build() == (lib, 0.0)      # reused while the hash holds
+
+
+def test_centroid_specialisation_is_the_warp_kernel():
+    """K_CENTROID launches the one-warp-per-board kernel; the per-thread
+    template keeps no K_CENTROID instantiation."""
+    thread = (_build.CSRC / "fused_rollout.cu").read_text()
+    warp = (_build.CSRC / "fused_rollout_warp.cu").read_text()
+    assert "launch<K_CENTROID>" not in thread
+    assert "return fused_rollout_warp_launch(" in thread
+    assert "__global__" in warp and "fused_rollout_warp_launch(" in warp
+    assert torch_fused.KERNELS[0] == "centroid"
 
 
 def test_port_imports_no_jax():

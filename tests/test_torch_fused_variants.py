@@ -96,7 +96,8 @@ def _jax_run(params, leaves, seed, steps, block):
 
 def _port_run(params, leaves, seed, steps, block):
     batch = leaves["grid"].shape[0]
-    fn = torch_fused.make_fused_rollout(params, batch, steps, block=block)
+    fn = torch_fused.make_fused_rollout(params, batch, steps, block=block,
+                                        device="cpu")
     out, rsum, dcnt = fn(torch_fused.leaves_from_numpy(leaves, "cpu"), seed)
     assert fn.launches == 0   # CPU tensors take the plain version
     return torch_fused.leaves_to_numpy(out), float(rsum), int(dcnt)
@@ -271,7 +272,8 @@ def test_specialisations_are_supported(kernel):
     _, t_params = _params(kernel)
     assert torch_fused.supports(t_params)
     assert torch_fused.kernel_name(t_params) == kernel
-    fn = torch_fused.make_fused_rollout(t_params, 8, 3, block=8)
+    fn = torch_fused.make_fused_rollout(t_params, 8, 3, block=8,
+                                        device="cpu")
     assert fn.kernel == kernel
     out, rsum, dcnt = fn(torch_fused.zero_leaves(t_params, 8, "cpu"), 1)
     assert int(dcnt) >= 8 and fn.launches == 0

@@ -91,7 +91,8 @@ def _jax_chain(name):
 
 def _port_chain(name):
     _, t_params = _params(name)
-    fn = torch_fused.make_fused_rollout(t_params, BATCH, STEPS, block=BLOCK)
+    fn = torch_fused.make_fused_rollout(t_params, BATCH, STEPS, block=BLOCK,
+                                        device="cpu")
     leaves = torch_fused.leaves_from_numpy(_zero(t_params), "cpu")
     runs = []
     for seed in SEEDS:
@@ -167,6 +168,37 @@ def test_varpin_net_counts_are_in_range(name, chains):
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_chip_bound_counts_the_crossing_tests_made(name, chains):
+    """``chip_smoke._route_pairs`` counts, per board, the segment pairs the
+    routing rewards test for a crossing, as the kernels' loops do: the
+    centroid route's valid segments (one for a 2-pin net, its first pin's)
+    on different nets, and the beam route's ``min(count, M) - 1`` segments
+    per net, on different nets."""
+    import chip_smoke
+    _, t_params = _params(name)
+    N, M = t_params.max_num_nets, t_params.max_num_pins_per_net
+    leaves = chains(name)[1][-1][0]
+    pins = centroid = beam = 0
+    for b in range(BATCH):
+        net = leaves["pin_net"][b, :leaves["num_pins"][b, 0]].tolist()
+        cnt = [net.count(n) for n in range(N)]
+        start = np.cumsum([0] + cnt)
+        valid = [cnt[n] != 2 or q == start[n] for q, n in enumerate(net)]
+        centroid += sum(valid[q] and valid[r] and net[q] != net[r]
+                        for q in range(len(net))
+                        for r in range(q + 1, len(net)))
+        seg = [max(min(c, M) - 1, 0) for c in cnt]
+        beam += sum(seg[i] * seg[j] for i in range(N)
+                    for j in range(i + 1, N))
+        pins += len(net)
+    got = chip_smoke._route_pairs(
+        t_params, torch_fused.leaves_from_numpy(leaves, "cpu"))
+    assert got == pytest.approx((pins / BATCH, centroid / BATCH,
+                                 beam / BATCH))
+    assert got[1] < got[0] * (got[0] - 1) / 2     # not every pin pair
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_varpin_fixtures_are_fresh(name, chains):
     """The committed goldens equal what the JAX package records now."""
     stored = json.loads(golden_path(name).read_text())
@@ -189,7 +221,8 @@ def test_varpin_is_supported_for_every_reward(variant, reward):
     assert torch_fused.supports(params)
     assert jax_fused.supports(dataclasses.replace(
         load_experiment(variant)[0], **overrides))
-    fn = torch_fused.make_fused_rollout(params, 8, 6, block=8)
+    fn = torch_fused.make_fused_rollout(params, 8, 6, block=8,
+                                        device="cpu")
     assert fn.kernel == reward
     out, _, dcnt = fn(torch_fused.zero_leaves(params, 8, "cpu"), 1)
     assert int(dcnt) >= 8 and fn.launches == 0

@@ -11,6 +11,7 @@ import pathlib
 import pytest
 import torch
 
+from placement_tpu_torch.ops import _build
 from placement_tpu_torch.ops import fused_rollout as torch_fused
 from placement_tpu_torch.parallel import mesh
 from placement_tpu_torch.utils.config import load_env_params
@@ -160,3 +161,55 @@ def test_cuda_wrapper_rejects_over_capacity_before_launch(cuda):
     # make_fused_rollout refuses it: no wrapper exists that could launch
     with pytest.raises(ValueError, match="components_nopin"):
         torch_fused.make_fused_rollout(params, 128, 5, device=cuda)
+
+
+def _held_to_plain(params, batch, block, device, seeds=(1, 2)):
+    """Chained chunks of the kernel against the plain version: leaves and
+    done counts equal, board sums within 1e-5 (the plain version adds a
+    board's wirelength terms in another order). Returns the wrapper."""
+    fn = torch_fused.make_fused_rollout(params, batch, 50, block=block,
+                                        device=device)
+    leaves = torch_fused.zero_leaves(params, batch, device)
+    for seed in seeds:
+        got, got_r, got_d = fn.per_board(leaves, seed)
+        want, want_r, want_d = torch_fused.rollout_chunk_reference(
+            params, leaves, seed, 50, block)
+        torch.cuda.synchronize()
+        for k in torch_fused._LEAVES:
+            assert torch.equal(got[k], want[k]), k
+        assert torch.equal(got_d, want_d)
+        torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-5)
+        leaves = got
+    assert fn.launches == len(seeds)
+    return fn
+
+
+@pytest.mark.gpu
+def test_cuda_warp_kernel_varpin_web_at_4096_boards(cuda):
+    """The one-warp-per-board centroid kernel on main path 3's config at
+    its full batch: 512 CUDA blocks of 8 boards."""
+    params = _varpin_params("web")
+    fn = _held_to_plain(params, 4096, 256, cuda)
+    assert fn.kernel == "centroid"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,block", [(1004, 4), (20, 4)])
+def test_cuda_warp_kernel_partial_cuda_block(cuda, batch, block):
+    """A batch that is not a multiple of the 8 boards of a CUDA block: the
+    last block's idle warps return whole, and the logical block (not the
+    CUDA geometry) sets each board's random stream."""
+    assert batch % 8
+    _held_to_plain(load_env_params("rectangle_pin"), batch, block, cuda)
+
+
+@pytest.mark.gpu
+def test_cuda_centroid_has_only_the_warp_kernel(cuda):
+    """The library holds the warp kernel and no per-thread K_CENTROID
+    instantiation; the other four are still per-thread templates."""
+    torch_fused.kernel_library()
+    log = _build.library_path().with_suffix(".log").read_text()
+    assert "fused_rollout_warp_kernel" in log
+    assert "fused_rollout_kernelILi0E" not in log
+    for k in (1, 2, 3, 4):
+        assert f"fused_rollout_kernelILi{k}E" in log

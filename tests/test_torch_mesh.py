@@ -64,7 +64,8 @@ def _jax_chain(world, batch, block):
 def _port_ranks(world, batch, block, seeds):
     return mesh.spawn_ranks(
         mesh.rollout_rank, world,
-        args=(graft_entry.dryrun_params(), batch, STEPS, block, list(seeds)))
+        args=(graft_entry.dryrun_params(), batch, STEPS, block, list(seeds),
+              "cpu"))
 
 
 def _start_rank(rank, world, batch, block, start):
@@ -73,7 +74,7 @@ def _start_rank(rank, world, batch, block, start):
     chained."""
     local = batch // world
     fn = mesh.shard_fused_rollout(graft_entry.dryrun_params(), batch, STEPS,
-                                  block)
+                                  block, device="cpu")
     state = torch_fused.leaves_from_numpy(
         {k: v[rank * local:(rank + 1) * local] for k, v in start.items()},
         "cpu")
@@ -111,7 +112,8 @@ def test_each_rank_runs_its_shard_with_seed_plus_rank():
     ranks = _port_ranks(world, batch, 128, [11])
     sums, counts = [], []
     for r, res in enumerate(ranks):
-        fn = torch_fused.make_fused_rollout(params, local, STEPS, block=128)
+        fn = torch_fused.make_fused_rollout(params, local, STEPS, block=128,
+                                            device="cpu")
         want, rsum, dcnt = fn(torch_fused.zero_leaves(params, local, "cpu"),
                               11 + r)
         for k in torch_fused._LEAVES:
@@ -139,11 +141,12 @@ def test_one_process_is_the_unsharded_rollout():
     mesh.initialize_distributed(world_size=1)
     assert not dist.is_initialized()
     params = graft_entry.dryrun_params()
-    fn = mesh.shard_fused_rollout(params, 8, STEPS, block=128)
+    fn = mesh.shard_fused_rollout(params, 8, STEPS, block=128, device="cpu")
     assert (fn.rank, fn.world, fn.local.block) == (0, 1, 8)
     got, got_r, got_d = fn(torch_fused.zero_leaves(params, 8, "cpu"), 11)
     want, want_r, want_d = torch_fused.make_fused_rollout(
-        params, 8, STEPS)(torch_fused.zero_leaves(params, 8, "cpu"), 11)
+        params, 8, STEPS, device="cpu")(
+        torch_fused.zero_leaves(params, 8, "cpu"), 11)
     for k in torch_fused._LEAVES:
         assert torch.equal(got[k], want[k]), k
     assert int(got_d) == int(want_d) and float(got_r) == float(want_r)
@@ -154,17 +157,39 @@ def test_logical_block_is_in_the_stream():
     under another logical block give other leaves."""
     params = graft_entry.dryrun_params()
     leaves = torch_fused.zero_leaves(params, 8, "cpu")
-    by_block = [torch_fused.make_fused_rollout(params, 8, STEPS, block=b)(
-        leaves, 11)[0] for b in (4, 8)]
+    by_block = [torch_fused.make_fused_rollout(
+        params, 8, STEPS, block=b, device="cpu")(leaves, 11)[0]
+        for b in (4, 8)]
     assert any(not torch.equal(by_block[0][k], by_block[1][k])
                for k in torch_fused._LEAVES)
 
 
 def test_dryrun_multigpu_runs_on_cpu_ranks():
-    results = graft_entry.dryrun_multigpu(2)
+    results = graft_entry.dryrun_multigpu(2, device="cpu")
     assert len(results) == 2
     for res in results:
         (reward, episodes), = res["totals"]
         assert np.isfinite(reward) and reward < 0 and episodes >= 8
         assert res["launches"] == 0
         assert res["leaves"]["grid"].shape == (4, 36)
+
+
+def test_dryrun_multigpu_without_a_card_raises():
+    """The entry point runs on the card unless the CPU is asked for: with
+    no CUDA device it raises before spawning a rank."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.dryrun_multigpu(2)
+
+
+def test_sharded_entry_points_default_to_the_card():
+    """``shard_fused_rollout`` and ``rollout_rank`` run on the card unless
+    the caller passes ``device="cpu"``: CPU leaves are refused."""
+    params = graft_entry.dryrun_params()
+    fn = mesh.shard_fused_rollout(params, 8, STEPS)
+    assert fn.local.device.type == "cuda"
+    with pytest.raises(ValueError, match="expected cuda"):
+        fn(torch_fused.zero_leaves(params, 8, "cpu"), 11)
+    defaults = mesh.rollout_rank.__defaults__
+    assert defaults == ("cuda",)
