@@ -31,9 +31,11 @@ Phases (any failure raises and the exit code is not 0):
      recorded from the JAX kernel (tests/fixtures)
   5. kernel vs plain PyTorch on the card for every fused row of the matrix
      (its config and block) and both varying-pins configs at 4096 boards,
-     50 steps, and the centroid kernel at 1004 boards (a partial CUDA
-     block); times of both, the kernel's after a warm-up of the card; the
-     centroid kernel's time at 1024, 4096 and 16384 boards
+     50 steps, and the three warp kernels (centroid, beam, "both") at 1004
+     boards (a partial CUDA block); times of both, the kernel's after a
+     warm-up of the card; the centroid and beam kernels' times at 1024,
+     4096 and 16384 boards; each varying-pins config's time under each
+     routing reward
   6. main path 1, timed; the kernel's launch count must equal the calls
   7. main path 2, the matrix; launch counts set to 0 before and read after:
      every specialisation must have launched
@@ -100,17 +102,20 @@ JAX_GOLDENS = {
 }
 #: main path 3's ranks: chained seeds
 RANK_SEEDS = (1, 2)
-#: the centroid kernel (one warp per board, 8 boards per CUDA block) at a
+#: the warp kernels (one warp per board, 8 boards per CUDA block) at a
 #: batch that leaves a partial CUDA block, and its logical block
 PARTIAL_BATCH, PARTIAL_BLOCK = 1004, 4
-#: boards at which the centroid kernel is timed for its scaling
+#: the matrix rows held to plain at that batch: one per warp kernel
+PARTIAL_ROWS = ("pin_centroid", "pin_beam", "pin_both")
+#: boards at which the centroid and beam kernels are timed for their scaling
 SCALING_BATCHES = (1024, 4096, 16384)
 #: seconds of chained launches before every timed window
 WARM_S = 0.5
 #: kernel sources, by specialisation
-SOURCES = {k: "placement_tpu_torch/ops/csrc/fused_rollout.cu"
-           for k in KERNELS}
-SOURCES["centroid"] = "placement_tpu_torch/ops/csrc/fused_rollout_warp.cu"
+SOURCES = {k: "placement_tpu_torch/ops/csrc/fused_rollout_warp.cu"
+           for k in ("centroid", "beam", "both")}
+SOURCES.update({k: "placement_tpu_torch/ops/csrc/fused_rollout.cu"
+                for k in ("square", "rect")})
 
 #: an H100 SXM's rates (NVIDIA's data sheet and Hopper white paper): HBM3
 #: bytes/s; non-tensor instructions, 128 lanes an SM a clock over 132 SMs
@@ -166,12 +171,11 @@ def phase_build():
     log = lib.with_suffix(".log")
     label = "?"
     for line in (log.read_text().splitlines() if log.exists() else []):
-        m = re.search(r"Compiling entry function '.*fused_rollout_kernelILi"
-                      r"(\d)E", line)
+        m = re.search(r"Compiling entry function '.*fused_rollout_(warp_)?"
+                      r"kernelILi(\d)E", line)
         if m:
-            label = fused_rollout.KERNELS[int(m.group(1))]
-        elif "Compiling entry function" in line and "warp_kernel" in line:
-            label = "centroid (one warp per board)"
+            label = fused_rollout.KERNELS[int(m.group(2))] + (
+                " (one warp per board)" if m.group(1) else "")
         elif "registers" in line or "spill" in line or "stack frame" in line:
             print(f"[build] {label}: {line.strip()}")
 
@@ -360,7 +364,8 @@ def phase_kernel_vs_plain(label, params, block, batch=BATCH):
         _check(not bad, f"{label}: kernel leaves differ from the plain "
                         f"version: {bad}")
         _check(torch.equal(got_d, want_d), f"{label}: done counts differ")
-        if params.has_pins:
+        if params.has_pins and params.reward_type != "beam":
+            # the centroid route's terms are added in another order
             _check(err <= 1e-5, f"{label}: board rewards differ")
         else:
             _check(torch.equal(got_r, want_r), f"{label}: rewards differ")
@@ -382,8 +387,8 @@ def phase_kernel_vs_plain(label, params, block, batch=BATCH):
 
 
 def phase_batch_scaling(params, block):
-    """The centroid kernel's ms per chunk on ``params`` at several batches
-    (from mid-run boards, after a warm-up): flat means latency-bound, in
+    """The kernel's ms per chunk on ``params`` at several batches (from
+    mid-run boards, after a warm-up): flat means latency-bound, in
     proportion to the boards means throughput-bound."""
     from placement_tpu_torch.ops import fused_rollout as fr
     for batch in SCALING_BATCHES:
@@ -393,6 +398,21 @@ def phase_batch_scaling(params, block):
         ms = [_kernel_ms(fn, leaves, 10 * i, TIMED_CHUNKS) for i in (1, 2)]
         print(f"[batch] {fn.kernel} kernel, {batch} boards: ms per chunk "
               f"{ms!r}, {batch * STEPS / min(ms) * 1e3!r} env-steps/s")
+
+
+def phase_reward_split(label, params, block):
+    """The warp kernel's ms per chunk on ``params`` under each routing
+    reward (from mid-run boards, after a warm-up): what the routes cost
+    beside the rest of the step."""
+    from placement_tpu_torch.ops import fused_rollout as fr
+    ms = {}
+    for reward in ("centroid", "beam", "both"):
+        fn = fr.make_fused_rollout(params.replace(reward_type=reward), BATCH,
+                                   STEPS, block=block, device="cuda")
+        leaves, _, _ = fn.per_board(fr.zero_leaves(params, BATCH, "cuda"), 1)
+        ms[reward] = _kernel_ms(fn, leaves, 10, TIMED_CHUNKS)
+    print(f"[reward split] {label}, {BATCH} boards, block {block}: ms per "
+          f"chunk by reward {ms!r}")
 
 
 def phase_main_path(params, ref_mean):
@@ -579,10 +599,13 @@ def main():
     results = {row: phase_kernel_vs_plain(row, *_row(row))
                for row in bm.FUSED_ROWS}
     phase_batch_scaling(*_row("pin_centroid"))
-    # the centroid kernel with a partial CUDA block
-    partial_err = phase_kernel_vs_plain(
-        "pin_centroid partial block", _row("pin_centroid")[0], PARTIAL_BLOCK,
-        batch=PARTIAL_BATCH)[0]
+    phase_batch_scaling(*_row("pin_beam"))
+    # the warp kernels with a partial CUDA block
+    partial_err = {
+        fr.kernel_name(_row(row)[0]): phase_kernel_vs_plain(
+            f"{row} partial block", _row(row)[0], PARTIAL_BLOCK,
+            batch=PARTIAL_BATCH)[0]
+        for row in PARTIAL_ROWS}
     # the beam at its capacity width
     params, block = _row("pin_beam")
     err4, ms4, plain4, *_ = phase_kernel_vs_plain(
@@ -590,6 +613,7 @@ def main():
     for config, block in VARPIN.items():
         results[config] = phase_kernel_vs_plain(
             config, _golden_params(goldens[config]), block)
+        phase_reward_split(config, _golden_params(goldens[config]), block)
     hw = json.loads(HW_GOLDENS.read_text())
     launches_1, _ = phase_main_path(_row("pin_centroid")[0],
                                     hw["centroid"]["mean_reward"])
@@ -618,8 +642,7 @@ def main():
     entries = []
     for k, (row, *_, replaces) in KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by = results[row]
-        if k == "centroid":
-            err = max(err, partial_err)
+        err = max(err, partial_err.get(k, 0.0))
         entries.append({
             "name": f"fused_rollout_{k}",
             "route": "cuda",

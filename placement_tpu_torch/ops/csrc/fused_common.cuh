@@ -3,9 +3,9 @@
 // the counter-hash PRNG of the JAX kernel and the routing rewards' crossing
 // predicate.
 //
-//   fused_rollout.cu       one thread per board: K_BEAM, K_BOTH, K_SQUARE,
-//                          K_RECT; the C entry points
-//   fused_rollout_warp.cu  one warp per board: K_CENTROID
+//   fused_rollout.cu       one thread per board: K_SQUARE, K_RECT; the C
+//                          entry points
+//   fused_rollout_warp.cu  one warp per board: K_CENTROID, K_BEAM, K_BOTH
 
 #pragma once
 
@@ -33,7 +33,6 @@ static_assert(MAX_H * MAX_W <= (1 << 24), "cell counts must be exact in f32");
 static_assert(MAX_N * MAX_M <= 256, "per-net allocation table size");
 static_assert(MAX_C * MAX_PPC <= 256, "per-component cell table size");
 static_assert(MAX_M <= 32, "a net's visited pins must fit one 32-bit mask");
-static_assert(MAX_BW * MAX_BW <= 32, "beam candidates must fit one mask");
 
 }  // namespace
 
@@ -136,8 +135,9 @@ __device__ inline bool seg_intersect(float ax1, float ay1, float ax2,
 
 }  // namespace
 
-// The one-warp-per-board K_CENTROID kernel (fused_rollout_warp.cu); returns
-// cudaGetLastError() after the launch.
+// The one-warp-per-board pin kernel of p.kernel (K_CENTROID, K_BEAM or
+// K_BOTH; fused_rollout_warp.cu); returns cudaGetLastError() after the
+// launch.
 int fused_rollout_warp_launch(const FusedRolloutParams& p,
                               const FusedRolloutLeaves& in,
                               const FusedRolloutLeaves& out, float* rsum,

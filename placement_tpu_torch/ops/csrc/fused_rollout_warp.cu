@@ -1,29 +1,33 @@
-// Fused rollout chunk, K_CENTROID: one warp per board, the board's state in
-// registers spread over the warp's lanes.
+// Fused rollout chunk of the pin kernels, one warp per board: K_CENTROID,
+// K_BEAM and K_BOTH, one instantiation of fused_rollout_warp_kernel<K> each,
+// the board's state in registers spread over the warp's lanes.
 //
 // Replaces the Pallas TPU kernel of placement_tpu/ops/fused_rollout.py
 // (make_fused_rollout's pl.pallas_call at :866, body _build_kernel
-// :290-763) for PIN / PIN_SPATIAL with the centroid routing reward
-// (placement_tpu/ops/fused_routing.py::centroid_wl_int :85-173, through
-// reward_rows :406-430), with fixed or varying pins per net. It computes
-// exactly what the one-thread-per-board template of fused_rollout.cu
-// computes, bit for bit; the other four specialisations stay there.
+// :290-763) for PIN / PIN_SPATIAL, with fixed or varying pins per net, and
+// the routing reward of reward_rows (placement_tpu/ops/fused_routing.py
+// :406-430): the centroid route (centroid_wl_int :85-173), the beam-search
+// route (beam_wl_int :355-399, _beam_net :235-352), or both, where the
+// route with fewer crossings wins and a tie goes to beam.
 //
 // What bounds it on an H100: scalar operations, not bytes. A board-step of
 // the flagship (10x10 grid, 5 components, 3 nets x 6 pins) is ~450 integer
 // operations (sampling, paint, pin rotation, two legality planes); an
-// episode (one step in five) adds ~4.2k for the centroid reward (108
-// segment pairs on different nets at ~35 operations each, plus the
-// per-pin terms) and ~1.3k for the generator: ~1.5k operations per
-// board-step, ~3.2e8 per 50-step chunk of 4096 boards. Their integer half
-// (~1.6e8) at the card's integer issue rate takes ~9.7 us and binds
-// (chip_smoke.py's _chunk_bound). The leaves are ~1.7 KB per board, read
-// and written once: ~14 MB, ~4 us at 3.35 TB/s.
+// episode (one step in five) adds ~1.3k for the generator and the reward:
+// ~4.2k for the centroid route (108 segment pairs on different nets at ~35
+// operations each, plus the per-pin terms); for the beam route at width bw,
+// per net and round, bw^2 nearest-pin scans of M pins and a selection of bw
+// of the bw^2 candidates, then 75 segment pairs. chip_smoke.py's
+// _chunk_bound counts them for a run's own boards; the integer operations
+// at the card's integer issue rate bind. The leaves are ~1.7 KB per board,
+// read and written once: ~14 MB, ~4 us at 3.35 TB/s.
 //
-// What the design does about it. The per-thread kernel kept each board in
-// a 3840 B stack frame indexed dynamically; 128 such frames per SM overflow
-// L1, so its serial chain of a few thousand instructions per board-step ran
-// at tens of cycles each from L2. Here:
+// What the design does about it. A one-thread-per-board kernel keeps each
+// board, its beams and candidates in a 3-4 KB stack frame indexed
+// dynamically; 128 such frames per SM overflow L1, so its serial chain of a
+// few thousand instructions per board-step runs at tens of cycles each from
+// L2, and in a warp the boards that end an episode route while the others
+// wait. Here:
 //   * a board is a warp: lane x holds grid row x and the two legality-plane
 //     rows (MAX_H = 32), lane q holds pins q and q + 32 (MAX_P <= 64),
 //     lane c component c; cursor, component and pin counts are uniform.
@@ -32,17 +36,33 @@
 //   * the loops over rows, pins, components and nets run across the lanes
 //     (shuffles, ballots, warp sums, __match_any_sync), so the serial chain
 //     of a board-step is tens of warp instructions, not thousands;
-//   * 8 boards per 256-thread block, at most 64 registers a thread: all of
-//     4096 boards (31 warps per SM on 132 SMs) are resident at once.
+//   * the beam search routes floor(32 / M) nets at once: lane n*M + j holds
+//     pin j of net n (all of the flagship's 3 x 6 pins, of the varying-pins
+//     parity config's 4 x 5), and the beam's state is held on the net's
+//     lanes: lane t the lane of each beam's path position t and whether each
+//     beam has visited pin t (a byte and a bit per beam), lane j the
+//     candidate of each beam whose new pin is j. A nearest-pin scan is a
+//     segmented min over the net's lanes and a ballot (first wins); a
+//     selection is a segmented min of the unique 64-bit key (cost, the
+//     parent path's rank, the new pin's key, the candidate's index). A
+//     path's rank among the beams follows from its parent's rank and its
+//     new pin's key, so no path is compared position by position. The
+//     crossings test the segments of a shared-memory slice, pair by pair
+//     across the lanes;
+//   * 8 boards per 256-thread block, at most 64 registers a thread in all
+//     three instantiations: all of 4096 boards (31 warps per SM on 132 SMs)
+//     are resident at once. The beam's state spills a few words (8-16 B);
+//     that costs less than the occupancy that more registers would lose.
 // Every f32 sum whose order the plain version fixes is still taken in that
-// order (the wirelength over pins, the allocation's weights, the softmax
-// total and cumulative probabilities, the per-board reward sum): lane 0's
-// order, broadcast. Integer sums (and f32 sums of small integers, exact in
-// any order) are warp reductions. Every sort is a rank by counting over
-// unique keys, which gives the stable sort's order. The PRNG row and salt
-// are those of the LOGICAL block, whatever the launch geometry. Build with
-// -fmad=false, IEEE division and sqrt; the allocation's log, cos, exp and
-// sqrt are taken in f64 and rounded to f32, as in the plain version.
+// order (the wirelength over pins, or over nets and path positions, the
+// allocation's weights, the softmax total and cumulative probabilities, the
+// per-board reward sum): lane 0's order, broadcast. Integer sums (and f32
+// sums of small integers, exact in any order) are warp reductions. Every
+// sort is a rank by counting over unique keys, which gives the stable
+// sort's order. The PRNG row and salt are those of the LOGICAL block,
+// whatever the launch geometry. Build with -fmad=false, IEEE division and
+// sqrt; the allocation's log, cos, exp and sqrt are taken in f64 and
+// rounded to f32, as in the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -271,12 +291,297 @@ __device__ void centroid_wl_int(const FusedRolloutParams& p,
   ints_out = warp_sum(ints);
 }
 
+// ---- beam-search routing reward (fused_routing.beam_wl_int) ---------------
+
+constexpr float BIG = 1e9f;       // dead-path cost, routing.BIG
+constexpr float INF2 = 2e9f;      // "already selected" marker
+constexpr float NO_CAND = 3e9f;   // no candidate on this lane
+constexpr int NO_SEG = -1;        // no route segment in this slot
+
+static_assert(MAX_BW <= 4, "a byte of a path position, 2 bits of an index");
+static_assert(MAX_M <= 16, "a beam's lane in 4 bits, 2+ nets a turn");
+static_assert(MAX_N * MAX_M <= 4 * 32, "4 segment slots per lane");
+
+// The min of v over the lanes [base, base + M) of the caller's net, on
+// every lane of it (j = lane - base): a suffix min towards lane base, then
+// its broadcast.
+template <class T>
+__device__ __forceinline__ T seg_min(T v, int j, int M, int base) {
+  for (int d = 1; d < M; d <<= 1) {
+    const T o = __shfl_down_sync(FULL, v, d);
+    if (j + d < M && o < v) v = o;
+  }
+  return __shfl_sync(FULL, v, base);
+}
+
+__device__ __forceinline__ int seg_sum(int v, int j, int M, int base) {
+  for (int d = 1; d < M; d <<= 1) {
+    const int o = __shfl_down_sync(FULL, v, d);
+    if (j + d < M) v += o;
+  }
+  return __shfl_sync(FULL, v, base);
+}
+
+// The first lane of the caller's net where `hit` holds (0 if none).
+__device__ __forceinline__ int seg_first(bool hit, int base,
+                                         uint32_t segmask) {
+  return max(__ffs((__ballot_sync(FULL, hit) >> base) & segmask) - 1, 0);
+}
+
+// A route segment's endpoints (coordinates 0..31), a byte each.
+__device__ __forceinline__ int pack_seg(float x1, float y1, float x2,
+                                        float y2) {
+  return (int)x1 | (int)y1 << 8 | (int)x2 << 16 | (int)y2 << 24;
+}
+
+__device__ __forceinline__ float seg_coord(int s, int i) {
+  return (float)((s >> (8 * i)) & 0xff);
+}
+
+// Beam-route wirelength and crossing count (the same on every lane): every
+// net routed by beam search from its outlier pin, cnt - 1 segments per net.
+// `segs` is the warp's shared slice of MAX_N * MAX_M words (the generator's
+// allocation table, which is rewritten before its next read).
+//
+// Beam search per net, as _beam_net: the start is the pin farthest from the
+// centroid (first max wins; lane 0 for a net without pins); each of lim - 1
+// rounds expands every beam to its bw nearest untaken pins (first wins,
+// visited pins at cost BIG), candidates indexed parent-major, and keeps the
+// bw best by (cost, parent path's keys, new pin's key), first wins; the
+// route is the best final beam by (cost, path keys). Two details differ
+// from the plain version and cannot change the route:
+//   * a path's keys are compared through ranks: a new beam's path is its
+//     parent's plus one pin, so its rank among the new beams is that of
+//     (the parent's rank, the new pin's key);
+//   * when bw > M a beam runs out of lanes and the plain version adds
+//     candidates at lane 0 and cost BIG; here they are left out. Each beam
+//     still has min(bw, M) >= 1 candidates, so bw are always kept. A beam
+//     of cost BIG (dead) never has a live child, and while a net has pins
+//     left the best beam is live, so live beams rank first in every round
+//     and in the final pick whatever the dead ones' order.
+__device__ void beam_wl_int(const FusedRolloutParams& p, const WarpBoard& b,
+                            int lane, int* segs, float& wl_out,
+                            int& ints_out) {
+  const int N = p.nets, M = p.pins_per_net, P = p.pins, bw = p.beam_width;
+  const int G = 32 / M;                          // nets a turn
+  const int g = lane / M, j = lane - g * M, base = g * M;
+  const uint32_t segmask = (1u << M) - 1u;
+  // a pin's net, or -1 where it is not routed
+  int net_on[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = lane + 32 * s, n = b.pnet[s];
+    net_on[s] = (q < P && q < b.npin && n >= 0 && n < N) ? n : -1;
+  }
+  // lane n: net n's pin count and first pin
+  int cnt_l = 0;
+  for (int n = 0; n < N; ++n) {
+    const int c = warp_sum((net_on[0] == n) + (net_on[1] == n));
+    if (lane == n) cnt_l = c;
+  }
+  const int start_l = warp_scan(cnt_l, lane, N) - cnt_l;
+  __syncwarp();  // the generator's reads of the shared slice are done
+
+  float wl = 0.f;
+  for (int n0 = 0; n0 < N; n0 += G) {
+    const int n = n0 + g;
+    const bool real = g < G && n < N;
+    const int cnt_n = __shfl_sync(FULL, cnt_l, n & 31);
+    const int st_n = __shfl_sync(FULL, start_l, n & 31);
+    const int cnt = real ? cnt_n : 0;
+    const int lim = min(cnt, M);
+    // lane j: the net's pin of rank j, table position start + j
+    const int q = (real ? st_n : 0) + j, src = q & 31;
+    const int n_lo = __shfl_sync(FULL, net_on[0], src);
+    const int n_hi = __shfl_sync(FULL, net_on[1], src);
+    const int x_lo = __shfl_sync(FULL, b.pax[0], src);
+    const int x_hi = __shfl_sync(FULL, b.pax[1], src);
+    const int y_lo = __shfl_sync(FULL, b.pay[0], src);
+    const int y_hi = __shfl_sync(FULL, b.pay[1], src);
+    const bool hi = q >= 32;
+    const bool has = real && q < 64 && (hi ? n_hi : n_lo) == n;
+    const float x = has ? (float)(hi ? x_hi : x_lo) : 0.f;
+    const float y = has ? (float)(hi ? y_hi : y_lo) : 0.f;
+    // the pin's key: the order of x * 32768 + y
+    const uint32_t key = (uint32_t)(((int)x + 1) * 64 + ((int)y + 1));
+    const bool present = j < lim;
+
+    // start: the pin farthest from the net centroid (coordinate sums are
+    // small integers, exact in any order)
+    const int sxi = seg_sum(present ? (int)x : 0, j, M, base);
+    const int syi = seg_sum(present ? (int)y : 0, j, M, base);
+    const float denom = (float)max(cnt, 1);
+    const float cx = (float)sxi / denom, cy = (float)syi / denom;
+    const float ex = x - cx, ey = y - cy;
+    const float d0 = present ? sqrtf(ex * ex + ey * ey) : -1.f;
+    const float dmax = -seg_min(-d0, j, M, base);
+    const int start = seg_first(d0 == dmax, base, segmask);
+
+    // the beams: cost, last pin (4 bits each) and path rank (segment-
+    // uniform); lane t: byte k = beam k's lane at path position t, bit k of
+    // `visb` = beam k has visited (or has no) pin t
+    float cost[MAX_BW];
+#pragma unroll
+    for (int k = 0; k < MAX_BW; ++k) cost[k] = k == 0 ? 0.f : BIG;
+    uint32_t curs = (uint32_t)start * 0x1111u, ranks = 0u;
+    uint32_t path = j == 0 ? (uint32_t)start * 0x01010101u : 0u;
+    uint32_t visb = (j == start || !present) ? 0xfu : 0u;
+    const int rounds = (int)__reduce_max_sync(FULL, (unsigned)max(lim - 1, 0));
+
+    for (int step = 0; step < rounds; ++step) {
+      const bool active = step + 1 <= lim - 1;
+      // this lane's candidate of each beam: cost, nearest-pin rank c
+      float cc[MAX_BW];
+      uint32_t cn = 0u;
+#pragma unroll
+      for (int k = 0; k < MAX_BW; ++k) {
+        cc[k] = NO_CAND;
+        if (k >= bw) continue;
+        const int cur = (int)(curs >> (4 * k)) & 0xf;
+        const float curx = __shfl_sync(FULL, x, base + cur);
+        const float cury = __shfl_sync(FULL, y, base + cur);
+        const float dx = x - curx, dy = y - cury;
+        const float d = (visb >> k) & 1u ? BIG : sqrtf(dx * dx + dy * dy);
+        bool taken = false;
+        for (int c = 0; c < bw; ++c) {
+          // the nearest lane not taken yet, first wins
+          const float eff = taken ? INF2 : d;
+          const float m = seg_min(eff, j, M, base);
+          const int jj = seg_first(eff == m, base, segmask);
+          if (m < INF2 && j == jj) {
+            taken = true;
+            const float ccost = cost[k] + m;
+            cc[k] = ccost >= BIG ? BIG : ccost;
+            cn |= (uint32_t)c << (2 * k);
+          }
+        }
+      }
+      // keep the bw best: new beam k2 is the candidate of rank k2, found as
+      // the segment's min key; sel[k2] = its key's low bits (the parent's
+      // rank, the new pin's key, the parent k, c) and its lane at bit 20
+      uint32_t sel[MAX_BW];
+#pragma unroll
+      for (int k2 = 0; k2 < MAX_BW; ++k2) {
+        sel[k2] = 0u;
+        if (k2 >= bw) continue;
+        uint64_t mine = ~0ull;
+#pragma unroll
+        for (int k = 0; k < MAX_BW; ++k) {
+          if (k >= bw || cc[k] > BIG) continue;
+          const uint32_t rk = (ranks >> (2 * k)) & 3u;
+          const uint32_t lo = rk << 16 | key << 4 | (uint32_t)k << 2 |
+                              ((cn >> (2 * k)) & 3u);
+          const uint64_t o = (uint64_t)__float_as_uint(cc[k]) << 32 | lo;
+          mine = o < mine ? o : mine;
+        }
+        const uint64_t w = seg_min(mine, j, M, base);
+        const int win = seg_first(mine == w, base, segmask);
+        const int kp = (int)(w >> 2) & 3;
+#pragma unroll
+        for (int k = 0; k < MAX_BW; ++k)
+          if (j == win && k == kp) cc[k] = NO_CAND;
+        sel[k2] = ((uint32_t)w & 0x3ffffu) | (uint32_t)win << 20;
+        if (active) cost[k2] = __uint_as_float((uint32_t)(w >> 32));
+      }
+      if (!active) continue;
+      // the new beams' ranks, last pins, paths and visited pins
+      uint32_t nranks = 0u, ncurs = 0u, npath = 0u, nvisb = 0u;
+#pragma unroll
+      for (int k2 = 0; k2 < MAX_BW; ++k2) {
+        if (k2 >= bw) continue;
+        const uint32_t pk = (sel[k2] >> 4) & 0x3fffu;  // parent rank, key
+        uint32_t r = 0u;
+#pragma unroll
+        for (int k3 = 0; k3 < MAX_BW; ++k3)
+          r += k3 < bw && ((sel[k3] >> 4) & 0x3fffu) < pk;
+        const int par = (int)(sel[k2] >> 2) & 3;
+        const uint32_t jj = sel[k2] >> 20;
+        nranks |= r << (2 * k2);
+        ncurs |= jj << (4 * k2);
+        const uint32_t pbyte = (path >> (8 * par)) & 0xffu;
+        const uint32_t byte =
+            j <= step ? pbyte : (j == step + 1 ? jj : 0u);
+        npath |= byte << (8 * k2);
+        nvisb |= (((visb >> par) & 1u) | (uint32_t)(j == (int)jj)) << k2;
+      }
+      ranks = nranks;
+      curs = ncurs;
+      path = npath;
+      visb = nvisb;
+    }
+
+    // the route: the best beam by (cost, path rank), first wins
+    int best = 0;
+    float bc = cost[0];
+    uint32_t br = ranks & 3u;
+#pragma unroll
+    for (int k = 1; k < MAX_BW; ++k) {
+      const uint32_t rk = (ranks >> (2 * k)) & 3u;
+      if (k < bw && (cost[k] < bc || (cost[k] == bc && rk < br))) {
+        best = k;
+        bc = cost[k];
+        br = rk;
+      }
+    }
+    const int rl = (int)(path >> (8 * best)) & 0xff;
+    const float rx = __shfl_sync(FULL, x, base + rl);
+    const float ry = __shfl_sync(FULL, y, base + rl);
+    const float rx2 = __shfl_down_sync(FULL, rx, 1);
+    const float ry2 = __shfl_down_sync(FULL, ry, 1);
+    const bool sv = real && j + 1 <= lim - 1;
+    const float ddx = rx - rx2, ddy = ry - ry2;
+    const float term = sv ? sqrtf(ddx * ddx + ddy * ddy) : 0.f;
+    // the wirelength, nets outer, positions inner (adding +0 past a net's
+    // last segment is exact)
+    for (int gg = 0; gg < G && n0 + gg < N; ++gg)
+      for (int t = 0; t < rounds; ++t)
+        wl += __shfl_sync(FULL, term, gg * M + t);
+    if (real) segs[n * M + j] = sv ? pack_seg(rx, ry, rx2, ry2) : NO_SEG;
+  }
+  __syncwarp();
+
+  // crossings of segments on different nets: segment a broadcast from
+  // shared memory, the later nets' segments on the lanes' own slots
+  int own[4], own_net[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = lane + 32 * r;
+    own[r] = i < N * M ? segs[i] : NO_SEG;
+    own_net[r] = i / M;
+  }
+  int ints = 0;
+  for (int na = 0; na + 1 < N; ++na) {
+    for (int t = 0; t + 1 < M; ++t) {
+      const int sa = segs[na * M + t];
+      if (sa == NO_SEG) continue;
+      const float ax1 = seg_coord(sa, 0), ay1 = seg_coord(sa, 1);
+      const float ax2 = seg_coord(sa, 2), ay2 = seg_coord(sa, 3);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (own[r] != NO_SEG && own_net[r] > na)
+          ints += seg_intersect(ax1, ay1, ax2, ay2, seg_coord(own[r], 0),
+                                seg_coord(own[r], 1), seg_coord(own[r], 2),
+                                seg_coord(own[r], 3));
+    }
+  }
+  wl_out = wl;
+  ints_out = warp_sum(ints);
+}
+
+// The routed terminal reward of the kernel's reward type (reward_rows);
+// "both" takes the route with fewer crossings, a tie goes to beam.
+template <int K>
 __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
-                                               const WarpBoard& b,
-                                               int lane) {
-  float wl;
-  int ints;
-  centroid_wl_int(p, b, lane, wl, ints);
+                                               const WarpBoard& b, int lane,
+                                               int* segs) {
+  float wl = 0.f, c_wl = 0.f;
+  int ints = 0, c_ints = 0;
+  if constexpr (K != K_BEAM) centroid_wl_int(p, b, lane, c_wl, c_ints);
+  if constexpr (K != K_CENTROID) beam_wl_int(p, b, lane, segs, wl, ints);
+  if (K == K_CENTROID || (K == K_BOTH && ints > c_ints)) {
+    wl = c_wl;
+    ints = c_ints;
+  }
   return -(p.lam_w * (wl / p.wl_norm) + p.lam_i * ((float)ints / p.int_norm));
 }
 
@@ -461,8 +766,8 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
     const bool in_use = q < num_pins && q < P;
     comp[s] = in_use ? table[nc * M + min(max(rank, 0), M - 1)] : -1;
   }
-  // rank among the earlier pins of the same component (the per-thread
-  // ccount[comp]++ in pin order)
+  // rank among the earlier pins of the same component (a ccount[comp]++
+  // in pin order)
   const uint32_t lower = (1u << lane) - 1u;
   int crank[2];
   crank[0] = __popc(__match_any_sync(FULL, comp[0]) & lower);
@@ -505,6 +810,7 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
 
 // ---- one step (body) -----------------------------------------------------
 
+template <int K>
 __device__ void step(const FusedRolloutParams& p, const Rng& rng,
                      WarpBoard& b, float& rsum, int& dcnt, int* table,
                      int* cells, int lane) {
@@ -560,7 +866,8 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
   if (!done) return;
   // routed reward on the post-placement tables, else the penalty
   const float reward =
-      (placed_all && alive) ? routed_reward(p, b, lane) : p.penalty;
+      (placed_all && alive) ? routed_reward<K>(p, b, lane, table)
+                            : p.penalty;
   rsum = rsum + reward;
   ++dcnt;
   generate(p, rng, b, table, cells, lane);
@@ -568,6 +875,7 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
 
 // ---- the kernel ------------------------------------------------------------
 
+template <int K>
 __global__ void __launch_bounds__(BLOCK_THREADS, MIN_BLOCKS)
 fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
                           FusedRolloutLeaves out, float* rsum_out,
@@ -622,7 +930,7 @@ fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   int dcnt = 0;
   for (int t = 0; t < num_steps; ++t) {
     rng.salt = step_salt(blk_salt, t);
-    step(p, rng, bd, rsum, dcnt, s_table[warp], s_cells[warp], lane);
+    step<K>(p, rng, bd, rsum, dcnt, s_table[warp], s_cells[warp], lane);
   }
 
   for (int x = 0; x < H; ++x) {
@@ -661,6 +969,17 @@ fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   }
 }
 
+template <int K>
+int launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
+           const FusedRolloutLeaves& out, float* rsum, int32_t* dcnt,
+           int batch, int num_steps, int block, uint32_t seed,
+           cudaStream_t stream) {
+  const int grid = (batch + WARPS - 1) / WARPS;
+  fused_rollout_warp_kernel<K><<<grid, BLOCK_THREADS, 0, stream>>>(
+      p, in, out, rsum, dcnt, batch, num_steps, block, seed);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int fused_rollout_warp_launch(const FusedRolloutParams& p,
@@ -668,8 +987,17 @@ int fused_rollout_warp_launch(const FusedRolloutParams& p,
                               const FusedRolloutLeaves& out, float* rsum,
                               int32_t* dcnt, int batch, int num_steps,
                               int block, uint32_t seed, cudaStream_t stream) {
-  const int grid = (batch + WARPS - 1) / WARPS;
-  fused_rollout_warp_kernel<<<grid, BLOCK_THREADS, 0, stream>>>(
-      p, in, out, rsum, dcnt, batch, num_steps, block, seed);
-  return (int)cudaGetLastError();
+  switch (p.kernel) {
+    case K_CENTROID:
+      return launch<K_CENTROID>(p, in, out, rsum, dcnt, batch, num_steps,
+                                block, seed, stream);
+    case K_BEAM:
+      return launch<K_BEAM>(p, in, out, rsum, dcnt, batch, num_steps, block,
+                            seed, stream);
+    case K_BOTH:
+      return launch<K_BOTH>(p, in, out, rsum, dcnt, batch, num_steps, block,
+                            seed, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

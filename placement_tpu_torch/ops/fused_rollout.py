@@ -9,8 +9,10 @@ live here:
   * ``rollout_chunk_reference`` — plain PyTorch on ``[B, F]`` rows, on any
     device. The CPU tests hold it to the JAX kernel (run under the Pallas
     interpreter) and ``chip_smoke.py`` holds the CUDA kernel to it.
-  * ``ops/csrc/fused_rollout.cu`` — the hand-written CUDA kernel, one thread
-    per board, launched by ``FusedRollout`` on CUDA tensors.
+  * ``ops/csrc/fused_rollout_warp.cu`` / ``fused_rollout.cu`` — the
+    hand-written CUDA kernels (the pin environments one warp per board, the
+    reduced ones one thread per board), launched by ``FusedRollout`` on
+    CUDA tensors.
 
 ``make_fused_rollout`` returns a ``FusedRollout``: on CPU tensors it runs the
 plain version, on CUDA tensors it launches the kernel (or raises) and counts
@@ -55,8 +57,8 @@ _LEAVES = ("grid", "comp_h", "comp_w", "cursor", "num_components",
 _FLOAT_LEAVES = ("grid", "plane0", "plane1")
 
 #: Fixed capacities of the CUDA kernel (the ``MAX_*`` constants of
-#: ``csrc/fused_rollout.cu``; the wrapper checks the library reports the
-#: same). Grid rows are 32-bit masks; every other table is a per-thread
+#: ``csrc/fused_common.cuh``; the wrapper checks the library reports the
+#: same). Grid rows are 32-bit masks; every other table is a per-board
 #: array of this length. Pin configs are held to the pin capacities (and
 #: ``beam_width`` for the beam and "both" rewards), SQUARE / RECT only to
 #: the grid and ``components_nopin``.
@@ -655,11 +657,11 @@ def supports(params: EnvParams) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel's C interface (csrc/fused_rollout.cu, built by _build.py)
+# The CUDA kernels' C interface (csrc/fused_rollout.cu, built by _build.py)
 # ---------------------------------------------------------------------------
 
 class _KernelParams(ctypes.Structure):
-    """Mirror of ``FusedRolloutParams`` in csrc/fused_rollout.cu."""
+    """Mirror of ``FusedRolloutParams`` in csrc/fused_common.cuh."""
 
     _fields_ = [(n, ctypes.c_int32) for n in (
         "height", "width", "components", "nets", "pins_per_net", "pins",

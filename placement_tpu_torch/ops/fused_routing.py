@@ -3,7 +3,7 @@
 
 These are the plain PyTorch bodies of the fused rollout's terminal reward.
 ``ops/fused_rollout.py::rollout_chunk_reference`` calls them; the CUDA
-kernel (``ops/csrc/fused_rollout.cu``) carries its own device-side copy of
+kernel (``ops/csrc/fused_rollout_warp.cu``) carries its own device-side copy of
 the same arithmetic, and ``chip_smoke.py`` holds the two together.
 
   * ``centroid_wl_int`` — centroid star routing

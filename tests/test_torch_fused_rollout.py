@@ -372,11 +372,37 @@ def test_centroid_specialisation_is_the_warp_kernel():
     assert torch_fused.KERNELS[0] == "centroid"
 
 
+def test_beam_and_both_are_the_warp_kernel():
+    """K_BEAM and K_BOTH launch instantiations of the one-warp-per-board
+    kernel, beside K_CENTROID's; the per-thread template keeps only the
+    reduced kernels."""
+    thread = (_build.CSRC / "fused_rollout.cu").read_text()
+    warp = (_build.CSRC / "fused_rollout_warp.cu").read_text()
+    for k in ("K_CENTROID", "K_BEAM", "K_BOTH"):
+        assert f"launch<{k}>" not in thread
+        assert f"launch<{k}>(" in warp
+    for k in ("K_SQUARE", "K_RECT"):
+        assert f"launch<{k}>(" in thread and f"launch<{k}>" not in warp
+    # the per-thread pin code is gone with its kernels
+    for name in ("beam_wl_int", "centroid_wl_int", "routed_reward",
+                 "allocate_net", "extra_pins", "pnet"):
+        assert name not in thread, name
+    assert torch_fused.KERNELS[1:3] == ("beam", "both")
+
+
+#: every module of the port, and the smoke script (its main is guarded)
+PORT_MODULES = (
+    "placement_tpu_torch.env.types", "placement_tpu_torch.graft_entry",
+    "placement_tpu_torch.ops._build", "placement_tpu_torch.ops.fused_rollout",
+    "placement_tpu_torch.ops.fused_routing",
+    "placement_tpu_torch.parallel.mesh", "placement_tpu_torch.tools.bench_matrix",
+    "placement_tpu_torch.utils.config", "chip_smoke")
+
+
 def test_port_imports_no_jax():
     code = ("import sys\n"
-            "import placement_tpu_torch.ops.fused_rollout\n"
-            "import placement_tpu_torch.utils.config\n"
-            "import placement_tpu_torch.tools.bench_matrix\n"
+            f"for m in {PORT_MODULES!r}:\n"
+            "    __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'placement_tpu'))\n"
             "print(bad)\n"

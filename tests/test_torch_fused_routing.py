@@ -9,8 +9,8 @@ on one row or one column). The beam tables add a net without pins and nets
 with fewer pins left than the beam is wide.
 
 The JAX beam router is jitted once per beam width and table shape
-(``_jax_fn``): its trace grows with about bw^3, so bw <= 3 here and bw = 4
-is held on the card.
+(``_jax_fn``): its trace grows with about bw^3, so bw <= 3 on the small
+tables and bw = 4 once, at the kernel's capacity shape.
 """
 
 import dataclasses
@@ -157,6 +157,29 @@ def test_beam_wider_than_a_net_matches_jax(seed):
     np.testing.assert_array_equal(got_int.numpy(), np.asarray(want_int))
     np.testing.assert_array_equal(got_wl.numpy(), np.asarray(want_wl))
     assert float(got_int.sum()) > 0
+
+
+@pytest.mark.parametrize("seed,span", [(9, 10), (10, 5)])
+def test_beam_at_capacity_matches_jax(seed, span):
+    """The kernel's capacity shape: 16 pins per net (MAX_M), beam width 4
+    (MAX_BW), three nets, so N * M = 48 > 32 and the warp kernel routes the
+    nets in turns of two; the card tests hold it to this plain version."""
+    over = dict(max_num_pins_per_net=16, reward_type="beam",
+                reward_beam_width=4)
+    jax_params = dataclasses.replace(JAX_PARAMS, **over)
+    torch_params = TORCH_PARAMS.replace(**over)
+    N, M = torch_params.max_num_nets, torch_params.max_num_pins_per_net
+    assert (N * M > 32 and M == 16 and torch_params.max_pins == 48
+            and torch_params.reward_beam_width == 4)
+    tables = _tables(jax_params, 64, seed, span)
+    want_wl, want_int = jax.jit(functools.partial(
+        jax_routing.beam_wl_int, jax_params))(*map(jnp.asarray, tables))
+    got_wl, got_int = torch_routing.beam_wl_int(
+        torch_params, *map(torch.from_numpy, tables))
+    np.testing.assert_array_equal(got_int.numpy(), np.asarray(want_int))
+    np.testing.assert_array_equal(got_wl.numpy(), np.asarray(want_wl))
+    assert float(got_int.sum()) > 0
+    assert int(tables[3].max()) > 32     # pins in the second slot
 
 
 @pytest.mark.parametrize("reward_type", ["beam", "both"])

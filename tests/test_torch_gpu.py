@@ -165,8 +165,9 @@ def test_cuda_wrapper_rejects_over_capacity_before_launch(cuda):
 
 def _held_to_plain(params, batch, block, device, seeds=(1, 2)):
     """Chained chunks of the kernel against the plain version: leaves and
-    done counts equal, board sums within 1e-5 (the plain version adds a
-    board's wirelength terms in another order). Returns the wrapper."""
+    done counts equal, board sums equal under the beam reward and within
+    1e-5 otherwise (the plain version adds a board's centroid wirelength
+    terms in another order). Returns the wrapper."""
     fn = torch_fused.make_fused_rollout(params, batch, 50, block=block,
                                         device=device)
     leaves = torch_fused.zero_leaves(params, batch, device)
@@ -178,7 +179,10 @@ def _held_to_plain(params, batch, block, device, seeds=(1, 2)):
         for k in torch_fused._LEAVES:
             assert torch.equal(got[k], want[k]), k
         assert torch.equal(got_d, want_d)
-        torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-5)
+        if params.reward_type == "beam":
+            assert torch.equal(got_r, want_r)
+        else:
+            torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-5)
         leaves = got
     assert fn.launches == len(seeds)
     return fn
@@ -203,13 +207,58 @@ def test_cuda_warp_kernel_partial_cuda_block(cuda, batch, block):
     _held_to_plain(load_env_params("rectangle_pin"), batch, block, cuda)
 
 
+#: the kernel's capacity shape under the beam reward: 3 nets x 16 pins (48
+#: pins, a second pin slot; N * M > 32, so the warp kernel routes the nets
+#: in turns of two), beam width 4
+BEAM_CAPACITY = {"reward_type": "beam", "reward_beam_width": 4,
+                 "min_component_h": 3, "max_component_h": 3,
+                 "min_component_w": 3, "max_component_w": 3,
+                 "min_num_pins_per_net": 16, "max_num_pins_per_net": 16}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overrides", [
+    {"reward_type": "beam", "reward_beam_width": 1},
+    {"reward_type": "beam", "reward_beam_width": 2},
+    {"reward_type": "beam", "reward_beam_width": 3},
+    {"reward_type": "beam", "reward_beam_width": 4},
+    {"reward_type": "both"},
+    BEAM_CAPACITY,
+])
+def test_cuda_warp_beam_kernels_match_plain_version(cuda, overrides):
+    params = load_env_params("rectangle_pin").replace(**overrides)
+    fn = _held_to_plain(params, 512, 128, cuda)
+    assert fn.kernel == params.reward_type
+    if params.max_pins > 32:
+        assert int(fn(torch_fused.zero_leaves(params, 512, cuda), 9)[0][
+            "num_pins"].max()) > 32
+
+
+@pytest.mark.gpu
+def test_cuda_warp_both_kernel_varpin_parity(cuda):
+    """The "both" warp kernel on the parity geometry: 4 nets of 2..5 pins,
+    episodes of 3..6 placements."""
+    params = _varpin_params("parity")
+    fn = _held_to_plain(params, 1024, 128, cuda, seeds=(1, 2, 3))
+    assert fn.kernel == "both"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reward_type", ["beam", "both"])
+def test_cuda_warp_beam_kernels_partial_cuda_block(cuda, reward_type):
+    _held_to_plain(load_env_params("rectangle_pin").replace(
+        reward_type=reward_type), 1004, 4, cuda)
+
+
 @pytest.mark.gpu
 def test_cuda_centroid_has_only_the_warp_kernel(cuda):
-    """The library holds the warp kernel and no per-thread K_CENTROID
-    instantiation; the other four are still per-thread templates."""
+    """The library holds the warp kernel's centroid, beam and "both"
+    instantiations and no per-thread pin instantiation; square and rect
+    are still per-thread templates."""
     torch_fused.kernel_library()
     log = _build.library_path().with_suffix(".log").read_text()
-    assert "fused_rollout_warp_kernel" in log
-    assert "fused_rollout_kernelILi0E" not in log
-    for k in (1, 2, 3, 4):
+    for k in (0, 1, 2):
+        assert f"fused_rollout_warp_kernelILi{k}E" in log
+        assert f"fused_rollout_kernelILi{k}E" not in log
+    for k in (3, 4):
         assert f"fused_rollout_kernelILi{k}E" in log
