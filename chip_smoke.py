@@ -31,14 +31,17 @@ Phases (any failure raises and the exit code is not 0):
      recorded from the JAX kernel (tests/fixtures)
   5. kernel vs plain PyTorch on the card for every fused row of the matrix
      (its config and block) and both varying-pins configs at 4096 boards,
-     50 steps, and the three warp kernels (centroid, beam, "both") at 1004
-     boards (a partial CUDA block); times of both, the kernel's after a
-     warm-up of the card; the centroid and beam kernels' times at 1024,
-     4096 and 16384 boards; each varying-pins config's time under each
-     routing reward
+     50 steps, and one row per kernel at 1004 boards (a partial CUDA
+     block); the reduced kernels at their capacity shapes (SQUARE with
+     n = 3, RECT with 64 components, a 32x32 grid); times of both, the
+     kernel's after a warm-up of the card, with the host's launches
+     enqueued ahead of the card; the centroid, beam and rect kernels'
+     times at 1024, 4096 and 16384 boards; each varying-pins config's time
+     under each routing reward
   6. main path 1, timed; the kernel's launch count must equal the calls
   7. main path 2, the matrix; launch counts set to 0 before and read after:
-     every specialisation must have launched
+     every specialisation must have launched; the square and rect rows'
+     rates beside 4096 x 50 / kernel ms (what the host's enqueue costs)
   8. main path 3, the sharded rollout; one rank timed, its launches equal
      to its calls and its leaves to ``make_fused_rollout``'s; each of two
      ranks' leaves equal to the one-process kernel on its shard at seed +
@@ -102,13 +105,32 @@ JAX_GOLDENS = {
 }
 #: main path 3's ranks: chained seeds
 RANK_SEEDS = (1, 2)
-#: the warp kernels (one warp per board, 8 boards per CUDA block) at a
-#: batch that leaves a partial CUDA block, and its logical block
+#: the kernels (one warp per board; 8 boards per CUDA block, the reduced
+#: kernels 4) at a batch that leaves a partial CUDA block, and its logical
+#: block
 PARTIAL_BATCH, PARTIAL_BLOCK = 1004, 4
-#: the matrix rows held to plain at that batch: one per warp kernel
-PARTIAL_ROWS = ("pin_centroid", "pin_beam", "pin_both")
-#: boards at which the centroid and beam kernels are timed for their scaling
+#: the matrix rows held to plain at that batch: one per kernel
+PARTIAL_ROWS = ("pin_centroid", "pin_beam", "pin_both", "square", "rect")
+#: boards at which the centroid, beam and rect kernels are timed for their
+#: scaling
 SCALING_BATCHES = (1024, 4096, 16384)
+#: the reduced kernels' capacity shapes, held to plain at this batch: row,
+#: overrides. SQUARE's footprint is (component_n, component_n), not the
+#: component ranges; RECT's 64 components fill the second lane slot of the
+#: component tables, on a grid where the cursor passes 32; 32 rows fill
+#: every lane.
+SHAPE_BATCH = 512
+REDUCED_SHAPES = {
+    "square n=3": ("square", {"component_n": 3}),
+    "rect 64 components 32x32": ("rect", {
+        "height": 32, "width": 32, "min_num_components": 40,
+        "max_num_components": 64}),
+    "square 32x32 n=5": ("square", {"height": 32, "width": 32,
+                                    "component_n": 5}),
+}
+#: device cycles the card spins before a timed window, so that the host
+#: enqueues the window's launches ahead of it (tried in turn)
+SPIN_CYCLES = (10**7, 4 * 10**7, 16 * 10**7)
 #: seconds of chained launches before every timed window
 WARM_S = 0.5
 #: kernel sources, by specialisation
@@ -171,11 +193,11 @@ def phase_build():
     log = lib.with_suffix(".log")
     label = "?"
     for line in (log.read_text().splitlines() if log.exists() else []):
-        m = re.search(r"Compiling entry function '.*fused_rollout_(warp_)?"
-                      r"kernelILi(\d)E", line)
+        m = re.search(r"Compiling entry function '.*fused_rollout_"
+                      r"(warp|reduced)_kernelILi(\d)E", line)
         if m:
-            label = fused_rollout.KERNELS[int(m.group(2))] + (
-                " (one warp per board)" if m.group(1) else "")
+            label = (f"{fused_rollout.KERNELS[int(m.group(2))]} "
+                     f"(fused_rollout_{m.group(1)}_kernel)")
         elif "registers" in line or "spill" in line or "stack frame" in line:
             print(f"[build] {label}: {line.strip()}")
 
@@ -243,16 +265,26 @@ def _warm(fn, leaves, seed=10**6):
 
 def _kernel_ms(fn, leaves, seed, n):
     """Mean ms per chunk over n chained launches (CUDA events), after a
-    warm-up."""
+    warm-up. The card first spins while the host enqueues all n launches:
+    a kernel shorter than the wrapper's enqueue would otherwise be timed at
+    the host's pace. The window counts only if the card had not reached
+    its start when the last launch was enqueued."""
     import torch
     _warm(fn, leaves)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for i in range(n):
-        leaves, _, _ = fn.per_board(leaves, seed + i)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    for cycles in SPIN_CYCLES:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        out = leaves
+        for i in range(n):
+            out, _, _ = fn.per_board(out, seed + i)
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / n
+    raise RuntimeError("chip_smoke: the host never enqueued a timed window "
+                       "ahead of the card")
 
 
 def _plain_ms(params, leaves, seed, block):
@@ -334,10 +366,11 @@ def _chunk_bound(params, batch, steps, episodes, leaves):
     return max(t_bytes, t_ops) * 1e3, by, ops_int + ops_fp, nbytes
 
 
-def phase_kernel_vs_plain(label, params, block, batch=BATCH):
+def phase_kernel_vs_plain(label, params, block, batch=BATCH, timed=True):
     """The kernel against its plain version on ``params`` at ``batch``
     boards and logical ``block``, two chained chunks; returns (max abs
-    error, kernel ms per chunk, plain ms per chunk, bound ms, bound_by)."""
+    error, kernel ms per chunk, plain ms per chunk, bound ms, bound_by),
+    the error alone when not ``timed``."""
     import torch
     from placement_tpu_torch.ops import fused_rollout as fr
     label += f" ({fr.kernel_name(params)} kernel)"
@@ -371,6 +404,8 @@ def phase_kernel_vs_plain(label, params, block, batch=BATCH):
             _check(torch.equal(got_r, want_r), f"{label}: rewards differ")
         leaves = got
     err = max(leaf_err, board_err)
+    if not timed:
+        return (err,)
     # the bound of the second chunk (from mid-run boards) on its own data
     bound_ms, bound_by, ops, nbytes = _chunk_bound(
         params, batch, STEPS, int(got_d.sum()), leaves)
@@ -462,7 +497,7 @@ def phase_main_path(params, ref_mean):
 def phase_matrix(ref_means):
     """The throughput matrix's fused rows at 4096 boards, through
     bench_matrix.measure; returns each specialisation's launches, totalled
-    over the rows (each row's wrapper counts from 0)."""
+    over the rows (each row's wrapper counts from 0), and the rows."""
     import torch
     from placement_tpu_torch.ops import fused_rollout as fr
     from placement_tpu_torch.tools import bench_matrix as bm
@@ -495,7 +530,7 @@ def phase_matrix(ref_means):
     _check(all(launches[k] > 0 for k in KERNELS),
            f"the matrix run missed a kernel: {launches}")
     print(json.dumps({"matrix": rows}))
-    return launches
+    return launches, rows
 
 
 def phase_sharded(params, block, ref_mean):
@@ -600,12 +635,19 @@ def main():
                for row in bm.FUSED_ROWS}
     phase_batch_scaling(*_row("pin_centroid"))
     phase_batch_scaling(*_row("pin_beam"))
-    # the warp kernels with a partial CUDA block
+    phase_batch_scaling(*_row("rect"))
+    # every kernel with a partial CUDA block
     partial_err = {
         fr.kernel_name(_row(row)[0]): phase_kernel_vs_plain(
             f"{row} partial block", _row(row)[0], PARTIAL_BLOCK,
             batch=PARTIAL_BATCH)[0]
         for row in PARTIAL_ROWS}
+    for label, (row, overrides) in REDUCED_SHAPES.items():
+        params, block = _row(row)
+        kernel = fr.kernel_name(params)
+        partial_err[kernel] = max(partial_err[kernel], phase_kernel_vs_plain(
+            label, params.replace(**overrides), block, batch=SHAPE_BATCH,
+            timed=False)[0])
     # the beam at its capacity width
     params, block = _row("pin_beam")
     err4, ms4, plain4, *_ = phase_kernel_vs_plain(
@@ -630,7 +672,14 @@ def main():
         "spatial": (spatial["reward_sum"] - spatial["batch"] * pen)
         / (spatial["done_count"] - spatial["batch"]),
     }
-    launches = phase_matrix(ref_means)
+    launches, rows = phase_matrix(ref_means)
+    for row in ("square", "rect"):
+        print(f"[matrix] {row}: {rows[row]['steps_per_sec']!r} env-steps/s "
+              f"vs {BATCH} x {STEPS} / kernel ms "
+              f"{BATCH * STEPS / results[row][1] * 1e3!r}: a call takes "
+              f"{BATCH * STEPS / rows[row]['steps_per_sec'] * 1e3!r} ms of "
+              f"wall time, the kernel {results[row][1]!r} ms of it; the "
+              f"rest is the host's enqueue")
     launches["centroid"] += launches_1       # main path 1 runs it too
     web = goldens["varpin_web"]
     pen = fr._penalty(_golden_params(web))

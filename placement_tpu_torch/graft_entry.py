@@ -6,7 +6,7 @@
 the fused rollout sharded over ``n`` ranks on that function's reduced
 config. The learner half (``shard_learner`` and the full PPO train step)
 waits for the port of the models and the learner (ROADMAP.md queue 1 items
-7-8); ``entry`` (a model's forward step) for the models.
+5-6); ``entry`` (a model's forward step) is item 7.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 // What the fused rollout's two kernel sources share: the C interface
 // (parameters, leaf pointers), the fixed capacities, the specialisations,
 // the counter-hash PRNG of the JAX kernel and the routing rewards' crossing
-// predicate.
+// predicate. Both sources run one warp per board; the row-mask helpers they
+// share are fused_warp.cuh's.
 //
-//   fused_rollout.cu       one thread per board: K_SQUARE, K_RECT; the C
+//   fused_rollout.cu       the reduced kernels: K_SQUARE, K_RECT; the C
 //                          entry points
-//   fused_rollout_warp.cu  one warp per board: K_CENTROID, K_BEAM, K_BOTH
+//   fused_rollout_warp.cu  the pin kernels: K_CENTROID, K_BEAM, K_BOTH
 
 #pragma once
 

@@ -1,281 +1,220 @@
-// Fused rollout chunk of the reduced kernels, one thread per board, and the
-// C entry points of the kernel library.
+// Fused rollout chunk of the reduced kernels, one warp per board, and the C
+// entry points of the kernel library.
 //
 // Replaces the Pallas TPU kernel of placement_tpu/ops/fused_rollout.py
-// (make_fused_rollout's pl.pallas_call, kernel body _build_kernel) for the
-// SQUARE and RECT environments: one instantiation of the template
-// fused_rollout_kernel<K> each (enum Kernel in fused_common.cuh). No pin
-// tables, +1 per placement, one (SQUARE) or two (RECT) orientation planes.
-// The pin kernels (K_CENTROID, K_BEAM, K_BOTH) run one warp per board in
-// fused_rollout_warp.cu; fused_rollout_launch below dispatches to them.
-// Each thread runs the whole num_steps chunk of its board: random
-// legal-action sampling, placement, the next legality planes, the done
-// test, and on episode end the regeneration of a fresh instance.
+// (make_fused_rollout's pl.pallas_call at :866, body _build_kernel
+// :290-763) for the SQUARE and RECT environments (generate :364-397, the
+// step's sampling :610-643 and reward :711-713): one instantiation of
+// fused_rollout_reduced_kernel<K> each (enum Kernel in fused_common.cuh).
+// No pin tables, +1 per placement, one (SQUARE) or two (RECT) orientation
+// planes. The pin kernels (K_CENTROID, K_BEAM, K_BOTH) are
+// fused_rollout_warp.cu's; fused_rollout_launch below dispatches to them.
+// A warp runs the whole num_steps chunk of its board: random legal-action
+// sampling, placement, the next legality planes, the done test, and on
+// episode end the regeneration of a fresh instance.
 //
-// What bounds it on an H100: per-board integer work and local-memory
-// traffic, not device-memory bandwidth. A chunk reads and writes each
-// board's state once; everything in between is branchy scalar work on the
-// per-thread mask and component tables (912 B a frame). At the flagship
-// size there are only 4096 boards, so only 4096 threads: about one warp
-// per SM scheduler, and latency is hidden by nothing but each thread's own
-// instruction-level parallelism.
+// What bounds it on an H100: for SQUARE the bytes (three [H*W] f32 leaves
+// and two component tables a board, read and written once: ~10 MB at 4096
+// flagship boards, ~3 us at 3.35 TB/s), for RECT the integer operations of
+// two planes a step (chip_smoke.py's _chunk_bound counts both). In between
+// lies a serial chain per board of 50 dependent steps.
 //
-// What the design does about it: the TPU layout ([block, F] rows, [A, A]
-// cover and prefix matmuls, lane gathers) is not carried over. Occupancy
-// and legality planes are 32-bit row masks, so a footprint test is a few
-// ORs and shifts per row, a plane count is popcounts, and the sampled anchor
-// is found by popcount and bit clearing. Random numbers are drawn only by
-// boards that finish (the JAX kernel's lax.cond over the block computes the
-// same per-board values).
+// What the design does about it. One thread per board kept the row masks
+// and component tables in a 912 B stack frame indexed by runtime values,
+// so every step of the chain went through local memory, and read the f32
+// leaves cell by cell, 400 B apart between neighbouring threads. Here:
+//   * a board is a warp: lane x holds row x of the grid and of the two
+//     legality planes (three registers), and the loops over rows are warp
+//     operations (fused_warp.cuh, shared with the pin kernels);
+//   * the component tables (up to 64 entries) sit on two lane slots, entry
+//     c on lane c % 32 in slot c / 32; the component under the cursor is
+//     one shuffle, and one more only where a config has over 32 components;
+//   * each plane's count of legal anchors and the size of the component
+//     under the cursor are kept from the step that made them, a square
+//     component's second plane is a copy, and the sampled anchor stays a
+//     (row, column) pair, so no step divides by the grid's width;
+//   * RECT's generator draws entry c's height and width on entry c's lane;
+//   * the leaves are read and written 32 contiguous cells at a time, and
+//     the pin leaves (absent from these environments, but part of the
+//     state) pass through with a lane-strided copy, or are written as -1
+//     once the board has been regenerated.
+// The cursor, the component count and the counts of legal anchors are
+// uniform across the warp, so every branch is warp-uniform.
 //
 // Semantics kept bit for bit with the JAX kernel: the counter-hash PRNG
 // (_mix/_Rng) with the LOGICAL block of make_fused_rollout's `block`
-// argument in the salt, the draw order (call 1 in the step; 2..4 in RECT's
-// generator, none in SQUARE's). Build with -fmad=false and without
-// --use_fast_math, as the pin kernels need.
+// argument in the salt and row, whatever the launch geometry, and the draw
+// order (call 1 in the step; 2..4 in RECT's generator, none in SQUARE's).
+// Build with -fmad=false and without --use_fast_math, as the pin kernels
+// need.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include "fused_common.cuh"
+#include "fused_warp.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int WARPS = 4;                 // boards per block
+constexpr int BLOCK_THREADS = 32 * WARPS;
+constexpr int SLOTS = MAX_C_NOPIN / 32;  // component entries per lane
 
-// A board of the reduced kernels: no pin tables. Its pin leaves pass
-// through unchanged until the board is regenerated (`fresh`), which writes
-// them as -1 with num_pins = 0.
-struct Board {
-  uint32_t grid[MAX_H];            // bit y of row x = cell x*W + y occupied
-  uint32_t pl0[MAX_H], pl1[MAX_H]; // legality planes, same layout
-  int32_t ch[MAX_C_NOPIN], cw[MAX_C_NOPIN];
-  int32_t cur, numc;
-  bool fresh;
+static_assert(MAX_C_NOPIN % 32 == 0, "whole lane slots");
+
+// A board of the reduced kernels: lane x's grid and plane rows, and the
+// component entries lane + 32 * s. Its pin leaves stay in device memory:
+// they pass through unchanged until the board is regenerated (`fresh`),
+// which writes them as -1 with num_pins = 0.
+struct ReducedBoard {
+  uint32_t grid, pl0, pl1;
+  int32_t ch[SLOTS], cw[SLOTS];
+  int32_t cur, numc;  // uniform
+  int32_t h, w;       // the component under the cursor (uniform)
+  int32_t n0, n1;     // legal anchors of pl0, pl1 (uniform)
+  bool fresh;         // uniform
 };
 
-// ---- legality planes (planes_for) ----------------------------------------
-
-// The footprints the kernel has planes for (_build_kernel's `combos`):
-// SQUARE's n x n, otherwise the component ranges and their transposes.
-template <int K>
-__device__ __forceinline__ bool in_footprints(const FusedRolloutParams& p,
-                                              int h, int w) {
-  if (K == K_SQUARE) return h == p.component_n && w == p.component_n;
-  return (h >= p.min_h && h <= p.max_h && w >= p.min_w && w <= p.max_w) ||
-         (w >= p.min_h && w <= p.max_h && h >= p.min_w && h <= p.max_w);
-}
-
-// Anchors where an (ph, pw) footprint is in bounds and covers no occupied
-// cell; a footprint outside the config's set gives a zero plane.
-template <int K>
-__device__ void free_plane(const FusedRolloutParams& p, const uint32_t* grid,
-                           int ph, int pw, uint32_t* out) {
-  const int H = p.height, W = p.width;
-  const bool known = in_footprints<K>(p, ph, pw) && pw <= W;
-  const int nanchor = W - pw + 1;
-  const uint32_t anchors =
-      nanchor >= 32 ? 0xffffffffu : ((1u << max(nanchor, 0)) - 1u);
-  for (int x = 0; x < H; ++x) {
-    if (!known || x + ph > H) {
-      out[x] = 0u;
-      continue;
-    }
-    uint32_t occ = 0u;
-    for (int dx = 0; dx < ph; ++dx) occ |= grid[x + dx];
-    uint32_t dil = 0u;
-    for (int dy = 0; dy < pw; ++dy) dil |= occ >> dy;
-    out[x] = ~dil & anchors;
+// t[min(i, C-1)] of a component table, 0 for i < 0 (uniform i). Each slot
+// is shuffled under its own static index: a slot picked by a runtime index
+// would move the board into local memory.
+__device__ __forceinline__ int comp_at(const int32_t (&t)[SLOTS], int i,
+                                       int C) {
+  i = min(i, C - 1);
+  const int src = max(i, 0);
+  int got = __shfl_sync(FULL, t[0], src & 31);
+#pragma unroll
+  for (int s = 1; s < SLOTS; ++s) {
+    if (C <= 32 * s) break;
+    const int hi = __shfl_sync(FULL, t[s], src & 31);
+    if ((src >> 5) == s) got = hi;
   }
+  return i >= 0 ? got : 0;
 }
 
+// Moves to the component under the cursor: its size, and unless the board
+// has `placed_all`, its legality planes and their counts. A square
+// component's (w, h) is the same footprint (always so for SQUARE): plane 1
+// copies plane 0.
 template <int K>
-__device__ void planes_for(const FusedRolloutParams& p, Board& b, int ch_c,
-                           int cw_c, bool alive) {
-  if (!alive) {
-    for (int x = 0; x < p.height; ++x) b.pl0[x] = b.pl1[x] = 0u;
+__device__ __forceinline__ void next_component(const FusedRolloutParams& p,
+                                               ReducedBoard& b,
+                                               bool placed_all, int lane) {
+  b.h = comp_at(b.ch, b.cur, p.components);
+  b.w = comp_at(b.cw, b.cur, p.components);
+  if (placed_all) {
+    b.pl0 = b.pl1 = 0u;
+    b.n0 = b.n1 = 0;
     return;
   }
-  free_plane<K>(p, b.grid, ch_c, cw_c, b.pl0);
-  if (K == K_SQUARE) {
-    // (w, h) is the same footprint: SQUARE's plane 1 equals plane 0
-    for (int x = 0; x < p.height; ++x) b.pl1[x] = b.pl0[x];
+  b.pl0 = free_row<K == K_SQUARE>(p, b.grid, b.h, b.w, lane);
+  b.n0 = plane_count(b.pl0);
+  if (K == K_SQUARE || b.h == b.w) {
+    b.pl1 = b.pl0;
+    b.n1 = b.n0;
   } else {
-    free_plane<K>(p, b.grid, cw_c, ch_c, b.pl1);
+    b.pl1 = free_row<false>(p, b.grid, b.w, b.h, lane);
+    b.n1 = plane_count(b.pl1);
   }
-}
-
-__device__ __forceinline__ int plane_count(const FusedRolloutParams& p,
-                                           const uint32_t* pl) {
-  int c = 0;
-  for (int x = 0; x < p.height; ++x) c += __popc(pl[x]);
-  return c;
-}
-
-// Row-major index of the k-th (0-based) legal cell; A-1 if there is none
-// (the JAX kernel's count of prefix sums <= k, capped at A-1).
-__device__ int nth_cell(const FusedRolloutParams& p, const uint32_t* pl,
-                        int k) {
-  for (int x = 0; x < p.height; ++x) {
-    const int c = __popc(pl[x]);
-    if (k < c) {
-      uint32_t m = pl[x];
-      for (int i = 0; i < k; ++i) m &= m - 1u;
-      return x * p.width + (__ffs(m) - 1);
-    }
-    k -= c;
-  }
-  return p.height * p.width - 1;
-}
-
-__device__ __forceinline__ int comp_at(const int32_t* t, int i, int C) {
-  i = min(i, C - 1);
-  return i >= 0 ? t[i] : 0;
 }
 
 // ---- in-kernel instance generator (generate) -----------------------------
 
-// The reduced kernels' generator (generate, :364-397): SQUARE's unlimited
-// supply of n x n components draws nothing; RECT draws heights (call 2),
-// widths (call 3) and the count (call 4).
+// SQUARE's unlimited supply of n x n components draws nothing (:364-377);
+// RECT draws heights (call 2), widths (call 3) and the count (call 4), each
+// entry on its own lane and slot (:379-397).
 template <int K>
 __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
-                               Board& b) {
+                         ReducedBoard& b, int lane) {
   const int C = p.components;
   if (K == K_SQUARE) {
-    for (int c = 0; c < C; ++c) b.ch[c] = b.cw[c] = p.component_n;
     b.numc = p.height * p.width;
   } else {
     b.numc = randint(p.min_c, p.max_c, rng.uniform(4, 1, 0));
-    for (int c = 0; c < C; ++c) {
-      int h = randint(p.min_h, p.max_h, rng.uniform(2, C, c));
-      int w = randint(p.min_w, p.max_w, rng.uniform(3, C, c));
-      if (c >= b.numc) h = w = 0;
-      b.ch[c] = h;
-      b.cw[c] = w;
-    }
   }
-  for (int x = 0; x < p.height; ++x) b.grid[x] = 0u;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int c = lane + 32 * s;
+    int h = 0, w = 0;
+    if (K == K_SQUARE) {
+      h = w = c < C ? p.component_n : 0;
+    } else if (32 * s < C) {
+      h = randint(p.min_h, p.max_h, rng.uniform(2, C, c));
+      w = randint(p.min_w, p.max_w, rng.uniform(3, C, c));
+      if (c >= b.numc || c >= C) h = w = 0;
+    }
+    b.ch[s] = h;
+    b.cw[s] = w;
+  }
+  b.grid = 0u;
   b.cur = 0;
   b.fresh = true;
-  planes_for<K>(p, b, b.ch[0], b.cw[0], true);
+  next_component<K>(p, b, false, lane);
 }
 
 // ---- one step (body) -----------------------------------------------------
 
-// Samples a legal action: its orientation `osel` and anchor cell `idx`
-// (:610-643): RECT draws over two planes, SQUARE over one. Returns whether
-// any action was legal.
-template <int K>
-__device__ __forceinline__ bool sample_action(const FusedRolloutParams& p,
-                                              const Rng& rng, const Board& b,
-                                              int& osel, int& idx) {
-  const int c0 = plane_count(p, b.pl0);
-  const int c1 = K == K_SQUARE ? 0 : plane_count(p, b.pl1);
-  const float total = (float)(c0 + c1);
-  const float u = rng.uniform(1, 1, 0);
-  float tgt = fminf(floorf(u * total), total - 1.0f);
-  tgt = fmaxf(tgt, 0.0f);
-  const float pre1 = (float)c0;
-  float tin = tgt;
-  osel = 0;
-  if (K == K_RECT) {
-    osel = tgt >= pre1;
-    tin = tgt - (osel == 0 ? 0.0f : pre1);
-  }
-  idx = nth_cell(p, osel % 2 == 0 ? b.pl0 : b.pl1, (int)tin);
-  return total > 0.0f;
-}
-
-// Marks the (ph, pw) footprint anchored at cell idx as occupied.
-__device__ __forceinline__ void paint(const FusedRolloutParams& p, Board& b,
-                                      int idx, int ph, int pw) {
-  const int H = p.height, W = p.width;
-  const int xx = idx / W, yy = idx % W;
-  const uint64_t wmask = (1ull << W) - 1ull;
-  const uint32_t cols =
-      (uint32_t)(((((1ull << max(pw, 0)) - 1ull) << yy)) & wmask);
-  for (int x = xx; x < min(xx + ph, H); ++x) b.grid[x] |= cols;
-}
-
-// The reduced kernels' step: +1 per successful placement, terminal or not
-// (:711-713), no pins to rotate.
+// Samples a legal action (:610-643: RECT over two planes, SQUARE over one),
+// places it for +1 (:711-713), makes the next component's planes and, on
+// done, regenerates the board.
 template <int K>
 __device__ void step(const FusedRolloutParams& p, const Rng& rng,
-                           Board& b, float& rsum, int& dcnt) {
-  const int C = p.components;
-  int osel, idx;
-  const bool alive = sample_action<K>(p, rng, b, osel, idx);
+                     ReducedBoard& b, float& rsum, int& dcnt, int lane) {
+  const int c0 = b.n0, c1 = K == K_SQUARE ? 0 : b.n1;
+  const float total = (float)(c0 + c1);
+  const bool alive = total > 0.0f;
   if (alive) {
-    const int chc = comp_at(b.ch, b.cur, C), cwc = comp_at(b.cw, b.cur, C);
-    const bool even = osel % 2 == 0;
-    paint(p, b, idx, even ? chc : cwc, even ? cwc : chc);
+    const float u = rng.uniform(1, 1, 0);
+    float tgt = fminf(floorf(u * total), total - 1.0f);
+    tgt = fmaxf(tgt, 0.0f);
+    const float pre1 = (float)c0;
+    const bool odd = K == K_RECT && tgt >= pre1;  // the (w, h) orientation
+    const float tin = tgt - (odd ? pre1 : 0.0f);
+    int xx, yy;
+    nth_cell(p, odd ? b.pl1 : b.pl0, (int)tin, lane, xx, yy);
+    paint(p, b.grid, xx, yy, odd ? b.w : b.h, odd ? b.h : b.w, lane);
     ++b.cur;
     rsum = rsum + 1.0f;
   }
   const bool placed_all = b.cur >= b.numc;
-  planes_for<K>(p, b, comp_at(b.ch, b.cur, C), comp_at(b.cw, b.cur, C),
-                !placed_all);
-  const int nt = plane_count(p, b.pl0) + plane_count(p, b.pl1);
-  const bool done = placed_all || nt == 0 || !alive;
+  next_component<K>(p, b, placed_all, lane);
+  const bool done = placed_all || b.n0 + b.n1 == 0 || !alive;
   if (!done) return;
   ++dcnt;
-  generate<K>(p, rng, b);
+  generate<K>(p, rng, b, lane);
 }
 
 // ---- the kernel ------------------------------------------------------------
 
-__device__ void load_masks(const FusedRolloutParams& p,
-                           const FusedRolloutLeaves& in, int64_t b,
-                           Board& m) {
-  const int H = p.height, W = p.width, A = H * W;
-  for (int x = 0; x < H; ++x) {
-    uint32_t g = 0u, m0 = 0u, m1 = 0u;
-    for (int y = 0; y < W; ++y) {
-      const int64_t a = b * A + x * W + y;
-      g |= (uint32_t)(in.grid[a] != 0.0f) << y;
-      m0 |= (uint32_t)(in.plane0[a] != 0.0f) << y;
-      m1 |= (uint32_t)(in.plane1[a] != 0.0f) << y;
-    }
-    m.grid[x] = g;
-    m.pl0[x] = m0;
-    m.pl1[x] = m1;
-  }
-}
-
-__device__ void store_masks(const FusedRolloutParams& p,
-                            const FusedRolloutLeaves& out, int64_t b,
-                            const Board& m) {
-  const int H = p.height, W = p.width, A = H * W;
-  for (int x = 0; x < H; ++x) {
-    for (int y = 0; y < W; ++y) {
-      const int64_t a = b * A + x * W + y;
-      out.grid[a] = (float)((m.grid[x] >> y) & 1u);
-      out.plane0[a] = (float)((m.pl0[x] >> y) & 1u);
-      out.plane1[a] = (float)((m.pl1[x] >> y) & 1u);
-    }
-  }
-}
-
 template <int K>
-__global__ void __launch_bounds__(THREADS)
-fused_rollout_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
-                     FusedRolloutLeaves out, float* rsum_out,
-                     int32_t* dcnt_out, int batch, int num_steps, int block,
-                     uint32_t seed) {
-  const int bi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (bi >= batch) return;
-  const int C = p.components, P = p.pins;
+__global__ void __launch_bounds__(BLOCK_THREADS)
+fused_rollout_reduced_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
+                             FusedRolloutLeaves out, float* rsum_out,
+                             int32_t* dcnt_out, int batch, int num_steps,
+                             int block, uint32_t seed) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bi = blockIdx.x * WARPS + warp;
+  if (bi >= batch) return;  // the whole warp; no block barrier follows
+  const int A = p.height * p.width, C = p.components, P = p.pins;
   const int64_t b = bi;
-  Board bd;
-  load_masks(p, in, b, bd);
-  for (int c = 0; c < C; ++c) {
-    bd.ch[c] = in.comp_h[b * C + c];
-    bd.cw[c] = in.comp_w[b * C + c];
+
+  ReducedBoard bd;
+  bd.grid = load_rows(p, in.grid + b * A, lane);
+  bd.pl0 = load_rows(p, in.plane0 + b * A, lane);
+  bd.pl1 = load_rows(p, in.plane1 + b * A, lane);
+  bd.n0 = plane_count(bd.pl0);
+  bd.n1 = plane_count(bd.pl1);
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int c = lane + 32 * s;
+    bd.ch[s] = c < C ? in.comp_h[b * C + c] : 0;
+    bd.cw[s] = c < C ? in.comp_w[b * C + c] : 0;
   }
   bd.cur = in.cursor[b];
   bd.numc = in.num_components[b];
+  bd.h = comp_at(bd.ch, bd.cur, C);
+  bd.w = comp_at(bd.cw, bd.cur, C);
   bd.fresh = false;
 
   Rng rng;
@@ -285,27 +224,38 @@ fused_rollout_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   int dcnt = 0;
   for (int t = 0; t < num_steps; ++t) {
     rng.salt = step_salt(blk_salt, t);
-    step<K>(p, rng, bd, rsum, dcnt);
+    step<K>(p, rng, bd, rsum, dcnt, lane);
   }
 
-  store_masks(p, out, b, bd);
-  for (int c = 0; c < C; ++c) {
-    out.comp_h[b * C + c] = bd.ch[c];
-    out.comp_w[b * C + c] = bd.cw[c];
+  store_rows(p, out.grid + b * A, bd.grid, lane);
+  store_rows(p, out.plane0 + b * A, bd.pl0, lane);
+  store_rows(p, out.plane1 + b * A, bd.pl1, lane);
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int c = lane + 32 * s;
+    if (c < C) {
+      out.comp_h[b * C + c] = bd.ch[s];
+      out.comp_w[b * C + c] = bd.cw[s];
+    }
   }
-  out.cursor[b] = bd.cur;
-  out.num_components[b] = bd.numc;
   // the pin leaves pass through; a regenerated board has none
-  out.num_pins[b] = bd.fresh ? 0 : in.num_pins[b];
-  int32_t* const outs[6] = {out.pin_rel_x, out.pin_rel_y, out.pin_abs_x,
-                            out.pin_abs_y, out.pin_net,   out.pin_comp};
-  const int32_t* const ins[6] = {in.pin_rel_x, in.pin_rel_y, in.pin_abs_x,
-                                 in.pin_abs_y, in.pin_net,   in.pin_comp};
-  for (int l = 0; l < 6; ++l)
-    for (int q = 0; q < P; ++q)
-      outs[l][b * P + q] = bd.fresh ? -1 : ins[l][b * P + q];
-  rsum_out[b] = rsum;
-  dcnt_out[b] = dcnt;
+  const auto pins_through = [&](int32_t* to, const int32_t* from) {
+    for (int q = lane; q < P; q += 32)
+      to[b * P + q] = bd.fresh ? -1 : from[b * P + q];
+  };
+  pins_through(out.pin_rel_x, in.pin_rel_x);
+  pins_through(out.pin_rel_y, in.pin_rel_y);
+  pins_through(out.pin_abs_x, in.pin_abs_x);
+  pins_through(out.pin_abs_y, in.pin_abs_y);
+  pins_through(out.pin_net, in.pin_net);
+  pins_through(out.pin_comp, in.pin_comp);
+  if (lane == 0) {
+    out.cursor[b] = bd.cur;
+    out.num_components[b] = bd.numc;
+    out.num_pins[b] = bd.fresh ? 0 : in.num_pins[b];
+    rsum_out[b] = rsum;
+    dcnt_out[b] = dcnt;
+  }
 }
 
 template <int K>
@@ -313,8 +263,8 @@ void launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
             const FusedRolloutLeaves& out, float* rsum, int32_t* dcnt,
             int batch, int num_steps, int block, uint32_t seed,
             cudaStream_t stream) {
-  const int grid = (batch + THREADS - 1) / THREADS;
-  fused_rollout_kernel<K><<<grid, THREADS, 0, stream>>>(
+  const int grid = (batch + WARPS - 1) / WARPS;
+  fused_rollout_reduced_kernel<K><<<grid, BLOCK_THREADS, 0, stream>>>(
       p, in, out, rsum, dcnt, batch, num_steps, block, seed);
 }
 

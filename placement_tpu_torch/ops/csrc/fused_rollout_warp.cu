@@ -35,7 +35,8 @@
 //     a slice per warp: the per-net allocation table and the cell order;
 //   * the loops over rows, pins, components and nets run across the lanes
 //     (shuffles, ballots, warp sums, __match_any_sync), so the serial chain
-//     of a board-step is tens of warp instructions, not thousands;
+//     of a board-step is tens of warp operations, not thousands; the row
+//     helpers are fused_warp.cuh's, shared with the reduced kernels;
 //   * the beam search routes floor(32 / M) nets at once: lane n*M + j holds
 //     pin j of net n (all of the flagship's 3 x 6 pins, of the varying-pins
 //     parity config's 4 x 5), and the beam's state is held on the net's
@@ -68,32 +69,17 @@
 #include <stdint.h>
 
 #include "fused_common.cuh"
+#include "fused_warp.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 8;                 // boards per block
 constexpr int BLOCK_THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS = 4;            // 64 registers a thread
 
-static_assert(MAX_H <= 32, "a grid row per lane");
 static_assert(MAX_P <= 64, "two pin slots per lane");
 static_assert(MAX_C <= 32 && MAX_N <= 32 && MAX_M <= 32, "a lane per entry");
 static_assert(MAX_PPC <= 16, "two components' cells per warp pass");
-
-__device__ __forceinline__ int warp_sum(int v) {
-  return (int)__reduce_add_sync(FULL, (unsigned)v);
-}
-
-// Inclusive prefix sum over lanes 0..n-1 (right there; other lanes' result
-// is not used).
-__device__ __forceinline__ int warp_scan(int v, int lane, int n) {
-  for (int d = 1; d < n; d <<= 1) {
-    const int u = __shfl_up_sync(FULL, v, d);
-    if (lane >= d) v += u;
-  }
-  return v;
-}
 
 // A board: lane x's grid and plane rows, lane c's component, lane q's pins
 // q (slot 0) and q + 32 (slot 1).
@@ -113,29 +99,6 @@ __device__ __forceinline__ int comp_at(int v, int i, int C) {
 
 // ---- legality planes ------------------------------------------------------
 
-__device__ __forceinline__ bool in_footprints(const FusedRolloutParams& p,
-                                              int h, int w) {
-  return (h >= p.min_h && h <= p.max_h && w >= p.min_w && w <= p.max_w) ||
-         (w >= p.min_h && w <= p.max_h && h >= p.min_w && h <= p.max_w);
-}
-
-// Row `lane` of the anchors where an (ph, pw) footprint is in bounds and
-// covers no occupied cell; 0 for a footprint outside the config's set.
-__device__ uint32_t free_row(const FusedRolloutParams& p, uint32_t grid,
-                             int ph, int pw, int lane) {
-  const int H = p.height, W = p.width;
-  const bool known = in_footprints(p, ph, pw) && pw <= W;
-  if (!known) return 0u;
-  const int nanchor = W - pw + 1;
-  const uint32_t anchors =
-      nanchor >= 32 ? FULL : ((1u << max(nanchor, 0)) - 1u);
-  uint32_t occ = 0u;
-  for (int dx = 0; dx < ph; ++dx) occ |= __shfl_down_sync(FULL, grid, dx);
-  uint32_t dil = 0u;
-  for (int dy = 0; dy < pw; ++dy) dil |= occ >> dy;
-  return (lane < H && lane + ph <= H) ? (~dil & anchors) : 0u;
-}
-
 __device__ __forceinline__ void planes_for(const FusedRolloutParams& p,
                                            WarpBoard& b, int ch_c, int cw_c,
                                            bool alive, int lane) {
@@ -143,29 +106,8 @@ __device__ __forceinline__ void planes_for(const FusedRolloutParams& p,
     b.pl0 = b.pl1 = 0u;
     return;
   }
-  b.pl0 = free_row(p, b.grid, ch_c, cw_c, lane);
-  b.pl1 = free_row(p, b.grid, cw_c, ch_c, lane);
-}
-
-__device__ __forceinline__ int plane_count(uint32_t pl) {
-  return warp_sum(__popc(pl));
-}
-
-// Row-major index of the k-th (0-based) legal cell, H*W-1 if there is none:
-// the row is the first lane whose running count passes k, the column the
-// remaining rank's set bit of that row.
-__device__ int nth_cell(const FusedRolloutParams& p, uint32_t pl, int k,
-                        int lane) {
-  const int incl = warp_scan(__popc(pl), lane, 32);
-  const uint32_t past = __ballot_sync(FULL, incl > k);
-  if (past == 0u) return p.height * p.width - 1;
-  const int x = __ffs(past) - 1;
-  const uint32_t m = __shfl_sync(FULL, pl, x);
-  const int kk = k - (__shfl_sync(FULL, incl, x) - __popc(m));
-  const uint32_t below = (1u << lane) - 1u;
-  const uint32_t hit =
-      __ballot_sync(FULL, ((m >> lane) & 1u) && __popc(m & below) == kk);
-  return x * p.width + (__ffs(hit) - 1);
+  b.pl0 = free_row<false>(p, b.grid, ch_c, cw_c, lane);
+  b.pl1 = free_row<false>(p, b.grid, cw_c, ch_c, lane);
 }
 
 // ---- centroid routing reward (fused_routing.centroid_wl_int) -------------
@@ -814,7 +756,7 @@ template <int K>
 __device__ void step(const FusedRolloutParams& p, const Rng& rng,
                      WarpBoard& b, float& rsum, int& dcnt, int* table,
                      int* cells, int lane) {
-  const int H = p.height, W = p.width, C = p.components, P = p.pins;
+  const int C = p.components, P = p.pins;
   // sample a legal action over four planes (2 and 3 copy 0 and 1)
   const int c0 = plane_count(b.pl0), c1 = plane_count(b.pl1);
   const float total = 2.0f * (float)(c0 + c1);
@@ -830,18 +772,13 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
                            : osel == 2 ? pre2
                                        : pre3);
   const bool even = osel % 2 == 0;
-  const int idx = nth_cell(p, even ? b.pl0 : b.pl1, (int)tin, lane);
+  int xx, yy;
+  nth_cell(p, even ? b.pl0 : b.pl1, (int)tin, lane, xx, yy);
   const bool alive = total > 0.0f;
-  const int xx = idx / W, yy = idx % W;
 
   const int chc = comp_at(b.ch, b.cur, C), cwc = comp_at(b.cw, b.cur, C);
   if (alive) {
-    // paint the footprint
-    const int ph = even ? chc : cwc, pw = even ? cwc : chc;
-    const uint64_t wmask = (1ull << W) - 1ull;
-    const uint32_t cols =
-        (uint32_t)(((((1ull << max(pw, 0)) - 1ull) << yy)) & wmask);
-    if (lane >= xx && lane < min(xx + ph, H)) b.grid |= cols;
+    paint(p, b.grid, xx, yy, even ? chc : cwc, even ? cwc : chc, lane);
     // pin rotation (Component.place_component:156-204)
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
@@ -891,20 +828,9 @@ fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   const int64_t b = bi;
 
   WarpBoard bd;
-  // rows: lane y reads cell (x, y), the ballot is row x's mask
-  bd.grid = bd.pl0 = bd.pl1 = 0u;
-  for (int x = 0; x < H; ++x) {
-    const int64_t a = b * A + x * W + lane;
-    const bool col = lane < W;
-    const uint32_t g = __ballot_sync(FULL, col && in.grid[a] != 0.0f);
-    const uint32_t m0 = __ballot_sync(FULL, col && in.plane0[a] != 0.0f);
-    const uint32_t m1 = __ballot_sync(FULL, col && in.plane1[a] != 0.0f);
-    if (lane == x) {
-      bd.grid = g;
-      bd.pl0 = m0;
-      bd.pl1 = m1;
-    }
-  }
+  bd.grid = load_rows(p, in.grid + b * A, lane);
+  bd.pl0 = load_rows(p, in.plane0 + b * A, lane);
+  bd.pl1 = load_rows(p, in.plane1 + b * A, lane);
   bd.ch = lane < C ? in.comp_h[b * C + lane] : 0;
   bd.cw = lane < C ? in.comp_w[b * C + lane] : 0;
   bd.cur = in.cursor[b];
@@ -933,17 +859,9 @@ fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
     step<K>(p, rng, bd, rsum, dcnt, s_table[warp], s_cells[warp], lane);
   }
 
-  for (int x = 0; x < H; ++x) {
-    const uint32_t g = __shfl_sync(FULL, bd.grid, x);
-    const uint32_t m0 = __shfl_sync(FULL, bd.pl0, x);
-    const uint32_t m1 = __shfl_sync(FULL, bd.pl1, x);
-    if (lane < W) {
-      const int64_t a = b * A + x * W + lane;
-      out.grid[a] = (float)((g >> lane) & 1u);
-      out.plane0[a] = (float)((m0 >> lane) & 1u);
-      out.plane1[a] = (float)((m1 >> lane) & 1u);
-    }
-  }
+  store_rows(p, out.grid + b * A, bd.grid, lane);
+  store_rows(p, out.plane0 + b * A, bd.pl0, lane);
+  store_rows(p, out.plane1 + b * A, bd.pl1, lane);
   if (lane < C) {
     out.comp_h[b * C + lane] = bd.ch;
     out.comp_w[b * C + lane] = bd.cw;

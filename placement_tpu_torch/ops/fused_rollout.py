@@ -9,10 +9,10 @@ live here:
   * ``rollout_chunk_reference`` — plain PyTorch on ``[B, F]`` rows, on any
     device. The CPU tests hold it to the JAX kernel (run under the Pallas
     interpreter) and ``chip_smoke.py`` holds the CUDA kernel to it.
-  * ``ops/csrc/fused_rollout_warp.cu`` / ``fused_rollout.cu`` — the
-    hand-written CUDA kernels (the pin environments one warp per board, the
-    reduced ones one thread per board), launched by ``FusedRollout`` on
-    CUDA tensors.
+  * ``ops/csrc/fused_rollout_warp.cu`` (the pin environments) and
+    ``fused_rollout.cu`` (the reduced ones, and the C entry points) — the
+    hand-written CUDA kernels, all one warp per board on the row helpers of
+    ``fused_warp.cuh``, launched by ``FusedRollout`` on CUDA tensors.
 
 ``make_fused_rollout`` returns a ``FusedRollout``: on CPU tensors it runs the
 plain version, on CUDA tensors it launches the kernel (or raises) and counts

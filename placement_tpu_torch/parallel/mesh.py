@@ -16,7 +16,7 @@ carries the two totals; a CUDA rank runs the kernel or raises.
 
 ``make_mesh``, ``batch_sharding``, ``replicated``, ``shard_learner`` and
 ``shard_env_batch`` serve the learner and the general stepper and are not
-ported yet (ROADMAP.md queue 1 items 5-8).
+ported yet (ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations

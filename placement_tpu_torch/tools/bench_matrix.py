@@ -16,7 +16,7 @@ the card's name and power limit; a row that fails raises. It prints one JSON
 line of rows and writes a file only when ``--out`` is given.
 
 The JAX tool's ``web_max_pooled`` row runs the pooled pure-JAX engine, which
-the port does not have yet (ROADMAP.md queue 1 item 6): that row raises
+the port does not have yet (ROADMAP.md queue 1 item 3): that row raises
 ``NotImplementedError``.
 """
 
@@ -148,7 +148,7 @@ def measure(name: str, env_params: EnvParams, anchor: str, batch: int,
         raise NotImplementedError(
             f"{name}: outside the fused kernel's envelope; it runs on the "
             "pooled engine, which is not ported yet (ROADMAP.md queue 1 "
-            "item 6)")
+            "item 3)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the matrix measures the fused "

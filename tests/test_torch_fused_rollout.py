@@ -24,6 +24,7 @@ freshness test below fails when they go stale).
 import hashlib
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -324,7 +325,7 @@ def test_default_device_is_the_card():
 def test_kernel_build_is_keyed_on_sources():
     names = [p.name for p in _build.sources()]
     for name in ("fused_rollout.cu", "fused_rollout_warp.cu",
-                 "fused_common.cuh"):
+                 "fused_common.cuh", "fused_warp.cuh"):
         assert name in names
     assert _build.source_hash() in _build.library_path().name
     assert "-fmad=false" in _build.NVCC_FLAGS
@@ -362,32 +363,56 @@ def test_kernel_build_runs_one_nvcc_per_source(tmp_path, monkeypatch):
 
 
 def test_centroid_specialisation_is_the_warp_kernel():
-    """K_CENTROID launches the one-warp-per-board kernel; the per-thread
-    template keeps no K_CENTROID instantiation."""
-    thread = (_build.CSRC / "fused_rollout.cu").read_text()
+    """K_CENTROID launches the pin kernels' one-warp-per-board template;
+    the source of the C entry points keeps no K_CENTROID instantiation."""
+    entry = (_build.CSRC / "fused_rollout.cu").read_text()
     warp = (_build.CSRC / "fused_rollout_warp.cu").read_text()
-    assert "launch<K_CENTROID>" not in thread
-    assert "return fused_rollout_warp_launch(" in thread
+    assert "launch<K_CENTROID>" not in entry
+    assert "return fused_rollout_warp_launch(" in entry
     assert "__global__" in warp and "fused_rollout_warp_launch(" in warp
     assert torch_fused.KERNELS[0] == "centroid"
 
 
 def test_beam_and_both_are_the_warp_kernel():
-    """K_BEAM and K_BOTH launch instantiations of the one-warp-per-board
-    kernel, beside K_CENTROID's; the per-thread template keeps only the
-    reduced kernels."""
-    thread = (_build.CSRC / "fused_rollout.cu").read_text()
+    """K_BEAM and K_BOTH launch instantiations of the pin kernels'
+    one-warp-per-board template, beside K_CENTROID's; the source of the C
+    entry points instantiates only the reduced kernels."""
+    entry = (_build.CSRC / "fused_rollout.cu").read_text()
     warp = (_build.CSRC / "fused_rollout_warp.cu").read_text()
     for k in ("K_CENTROID", "K_BEAM", "K_BOTH"):
-        assert f"launch<{k}>" not in thread
+        assert f"launch<{k}>" not in entry
         assert f"launch<{k}>(" in warp
     for k in ("K_SQUARE", "K_RECT"):
-        assert f"launch<{k}>(" in thread and f"launch<{k}>" not in warp
-    # the per-thread pin code is gone with its kernels
+        assert f"launch<{k}>(" in entry and f"launch<{k}>" not in warp
+    # no pin code beside the reduced kernels
     for name in ("beam_wl_int", "centroid_wl_int", "routed_reward",
                  "allocate_net", "extra_pins", "pnet"):
-        assert name not in thread, name
+        assert name not in entry, name
     assert torch_fused.KERNELS[1:3] == ("beam", "both")
+
+
+def test_reduced_kernels_are_warp_kernels():
+    """SQUARE and RECT run one warp per board like the pin kernels: no
+    per-board struct of arrays indexed by row, no one-thread-per-board
+    kernel, and the row helpers that both layouts of kernel use are
+    defined once, in the header they share."""
+    texts = {p.name: p.read_text() for p in _build.sources()}
+    entry = texts["fused_rollout.cu"]
+    assert "struct Board" not in entry
+    assert "[MAX_H]" not in "".join(texts.values())
+    kernels = re.findall(r"__global__\s+void\s+__launch_bounds__\([^)]*\)"
+                         r"\s*(\w+)\(", "".join(texts.values()))
+    assert sorted(kernels) == ["fused_rollout_reduced_kernel",
+                               "fused_rollout_warp_kernel"]
+    assert "blockDim.x + threadIdx.x" not in "".join(texts.values())
+    assert "const int bi = blockIdx.x * WARPS + warp;" in entry
+    assert '#include "fused_warp.cuh"' in entry
+    assert '#include "fused_warp.cuh"' in texts["fused_rollout_warp.cu"]
+    for helper in ("free_row", "nth_cell", "plane_count", "load_rows",
+                   "store_rows", "paint", "warp_scan"):
+        defined = [name for name, text in texts.items() if re.search(
+            rf"__device__[^;{{()]*\b{helper}\(", text)]
+        assert defined == ["fused_warp.cuh"], (helper, defined)
 
 
 #: every module of the port, and the smoke script (its main is guarded)

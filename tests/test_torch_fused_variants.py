@@ -214,6 +214,46 @@ def test_square_footprint_is_component_n():
     assert (got["cursor"] <= 9).all()
 
 
+#: shapes of the reduced kernels beyond the shipped configs, inside the JAX
+#: kernel's envelope (area <= 144): label -> (kernel, overrides, steps)
+REDUCED_SHAPES = {
+    # more than 32 components, small enough that the cursor passes 32: the
+    # CUDA kernel keeps entry c of the component tables on lane c % 32,
+    # slot c // 32
+    "rect_64_components": ("rect", {
+        "height": 12, "width": 12, "min_component_h": 1,
+        "max_component_h": 1, "min_component_w": 1, "max_component_w": 2,
+        "min_num_components": 40, "max_num_components": 64}, 70),
+    # more than 16 rows, narrower than they are many
+    "rect_18_rows": ("rect", {"height": 18, "width": 8}, 30),
+    "square_18_rows": ("square", {"height": 18, "width": 8}, 45),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(REDUCED_SHAPES))
+def test_reduced_shapes_match_jax_kernel(shape):
+    """The plain reduced path against the JAX kernel where the component
+    tables are longer than a warp and the grid has more rows than half a
+    warp, two chained chunks."""
+    kernel, overrides, steps = REDUCED_SHAPES[shape]
+    params, t_params = _params(kernel)
+    params = dataclasses.replace(params, **overrides)
+    t_params = t_params.replace(**overrides)
+    want = got = _zero(t_params, 8)
+    for seed in (41, 42):
+        want, want_r, want_d = _jax_run(params, want, seed, steps, 8)
+        got, got_r, got_d = _port_run(t_params, got, seed, steps, 8)
+        _assert_leaves_equal(got, want)
+        assert got_d == want_d > 8 and got_r == want_r
+    if shape == "rect_64_components":
+        assert got["comp_h"].shape == (8, 64)
+        assert (got["comp_h"][:, 32:] > 0).any()
+        # a cursor beyond the first 32 entries
+        assert (got["cursor"] > 32).any()
+    else:
+        assert got["grid"].reshape(8, 18, 8)[:, 16:].any()
+
+
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_port_reproduces_hardware_golden(kernel):
     """The TPU-measured rows of fused_hw_validation.json (k7 start, 128

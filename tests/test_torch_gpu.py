@@ -7,6 +7,7 @@ device every test skips (the kernel has no CPU mode).
 
 import json
 import pathlib
+import re
 
 import pytest
 import torch
@@ -165,9 +166,10 @@ def test_cuda_wrapper_rejects_over_capacity_before_launch(cuda):
 
 def _held_to_plain(params, batch, block, device, seeds=(1, 2)):
     """Chained chunks of the kernel against the plain version: leaves and
-    done counts equal, board sums equal under the beam reward and within
-    1e-5 otherwise (the plain version adds a board's centroid wirelength
-    terms in another order). Returns the wrapper."""
+    done counts equal, board sums equal under the beam reward and on the
+    reduced kernels (+1 per placement) and within 1e-5 otherwise (the
+    plain version adds a board's centroid wirelength terms in another
+    order). Returns the wrapper."""
     fn = torch_fused.make_fused_rollout(params, batch, 50, block=block,
                                         device=device)
     leaves = torch_fused.zero_leaves(params, batch, device)
@@ -179,7 +181,7 @@ def _held_to_plain(params, batch, block, device, seeds=(1, 2)):
         for k in torch_fused._LEAVES:
             assert torch.equal(got[k], want[k]), k
         assert torch.equal(got_d, want_d)
-        if params.reward_type == "beam":
+        if not params.has_pins or params.reward_type == "beam":
             assert torch.equal(got_r, want_r)
         else:
             torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-5)
@@ -251,14 +253,94 @@ def test_cuda_warp_beam_kernels_partial_cuda_block(cuda, reward_type):
 
 
 @pytest.mark.gpu
-def test_cuda_centroid_has_only_the_warp_kernel(cuda):
-    """The library holds the warp kernel's centroid, beam and "both"
-    instantiations and no per-thread pin instantiation; square and rect
-    are still per-thread templates."""
+@pytest.mark.parametrize("name,block", [("square", 256), ("rectangle", 512)])
+def test_cuda_reduced_kernels_at_4096_boards(cuda, name, block):
+    """The one-warp-per-board reduced kernels at the matrix rows' batch and
+    logical block: 1024 CUDA blocks of 4 boards."""
+    fn = _held_to_plain(load_env_params(name), 4096, block, cuda)
+    assert fn.kernel == {"square": "square", "rectangle": "rect"}[name]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["square", "rectangle"])
+@pytest.mark.parametrize("batch,block", [(1004, 4), (20, 4)])
+def test_cuda_reduced_kernels_partial_cuda_block(cuda, name, batch, block):
+    """A batch that is not a multiple of a CUDA block's boards, and a
+    logical block that is not the CUDA block."""
+    _held_to_plain(load_env_params(name), batch, block, cuda,
+                   seeds=(1, 2, 3))
+
+
+#: shapes of the reduced kernels at the edges of the lane layout
+REDUCED_SHAPES = {
+    # SQUARE's footprint is (component_n, component_n), not the ranges
+    "square_n3": ("square", {"component_n": 3}),
+    # the capacity: the second lane slot of the component tables
+    "rect_64_components": ("rectangle", {"min_num_components": 40,
+                                         "max_num_components": 64}),
+    # a cursor beyond 32 entries
+    "rect_64_small_components": ("rectangle", {
+        "height": 12, "width": 12, "min_component_h": 1,
+        "max_component_h": 1, "min_component_w": 1, "max_component_w": 2,
+        "min_num_components": 40, "max_num_components": 64}),
+    # every lane holds a row, rows of 32 cells
+    "rect_32x32": ("rectangle", {"height": 32, "width": 32,
+                                 "min_num_components": 40,
+                                 "max_num_components": 64}),
+    "square_32x32": ("square", {"height": 32, "width": 32,
+                                "component_n": 5}),
+    # rows that straddle the 32-cell runs of the loads and stores
+    "rect_17x23": ("rectangle", {"height": 17, "width": 23}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(REDUCED_SHAPES))
+def test_cuda_reduced_kernels_shapes(cuda, shape):
+    name, overrides = REDUCED_SHAPES[shape]
+    params = load_env_params(name).replace(**overrides)
+    fn = _held_to_plain(params, 256, 64, cuda)
+    if shape == "rect_64_small_components":
+        out, _, _ = fn(torch_fused.zero_leaves(params, 256, cuda), 9)
+        assert int(out["cursor"].max()) > 32
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_kernels_pass_pin_leaves_through(cuda):
+    """A board that is not regenerated keeps its pin leaves, whatever they
+    hold; a regenerated one writes -1 and no pins."""
+    params = load_env_params("square")
+    fn = torch_fused.make_fused_rollout(params, 64, 1, block=64,
+                                        device=cuda)
+    leaves, _, _ = fn(torch_fused.zero_leaves(params, 64, cuda), 1)
+    marked = {k: (torch.full_like(v, 7) if k.startswith("pin_") else v)
+              for k, v in leaves.items()}
+    marked["num_pins"] = torch.full_like(leaves["num_pins"], 3)
+    got, _, dcnt = fn.per_board(marked, 2)     # one step: no board is done
+    want, _, _ = torch_fused.rollout_chunk_reference(params, marked, 2, 1, 64)
+    assert int(dcnt.sum()) == 0
+    for k in torch_fused._LEAVES:
+        assert torch.equal(got[k], want[k]), k
+    assert int(got["pin_net"].min()) == 7 and int(got["num_pins"].min()) == 3
+
+
+@pytest.mark.gpu
+def test_cuda_library_has_only_warp_kernels(cuda):
+    """The library holds the pin kernels' centroid, beam and "both"
+    instantiations and the reduced kernels' square and rect ones, all one
+    warp per board; no one-thread-per-board instantiation is left, and the
+    reduced kernels keep their board in registers."""
     torch_fused.kernel_library()
     log = _build.library_path().with_suffix(".log").read_text()
     for k in (0, 1, 2):
         assert f"fused_rollout_warp_kernelILi{k}E" in log
-        assert f"fused_rollout_kernelILi{k}E" not in log
     for k in (3, 4):
-        assert f"fused_rollout_kernelILi{k}E" in log
+        assert f"fused_rollout_reduced_kernelILi{k}E" in log
+    assert "fused_rollout_kernelILi" not in log
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "fused_rollout_reduced_kernel" in line and "Compiling" in line:
+            props = " ".join(lines[i + 1:i + 4])
+            frame = int(re.search(r"(\d+) bytes stack frame",
+                                  props).group(1))
+            assert frame <= 64 and " 0 bytes spill stores" in props
