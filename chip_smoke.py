@@ -6,7 +6,7 @@ Builds the port's CUDA kernels from the sources in this checkout, holds each
 of the six specialisations of the fused rollout kernel (centroid, beam and
 "both" rewards on the pin environments; varying pins per net; the SQUARE and
 RECT reduced kernels) to the JAX reference's recorded numbers and to its
-plain PyTorch version, then drives the port's three main paths through the
+plain PyTorch version, then drives the port's main paths through the
 entry points a user calls:
 
   * ``bench.py``'s flagship rollout (``rectangle_pin``, centroid reward,
@@ -18,7 +18,10 @@ entry points a user calls:
     shard_fused_rollout``, on the web app's Train-page default (the flagship
     with 2..6 pins per net) at 4096 boards: one rank in this process, then
     two spawned ranks of 2048 boards (gloo on one card, NCCL on two or
-    more).
+    more);
+  * the general stepper, ``random_policy.simulate`` -> ``core.make_batched``
+    (reset, step with auto-reset, observe) on every env family and reward,
+    and the fused kernel started from its reset boards.
 
 Phases (any failure raises and the exit code is not 0):
   1. device  — requires CUDA; prints the card and its power limit
@@ -46,6 +49,24 @@ Phases (any failure raises and the exit code is not 0):
      to its calls and its leaves to ``make_fused_rollout``'s; each of two
      ranks' leaves equal to the one-process kernel on its shard at seed +
      rank, and the reduced totals to the sums of the ranks' own
+  9. [stepper], the general stepper (``env/core.py``, eager PyTorch) through
+     ``random_policy.simulate`` -> ``core.make_batched`` at 4096 boards:
+     the flagship (20 invariant-checked steps with PyTorch's sync debug
+     mode raising inside each step, the kernel launches of one step from
+     ``torch.profiler``, then ``simulate`` warmed up and timed over its 102
+     steps), then square, rectangle, rectangle_spatial_pin, the web
+     default (2..6 pins per net), and the beam and "both" rewards (20
+     checked steps and one ``simulate`` each); every mean return within 4
+     combined standard errors of JAX's (tests/fixtures/
+     torch_stepper_means.json)
+ 10. [stepper card == cpu]: 10 steps of the flagship and of "both" at 512
+     boards, each replayed on the CPU from the card's state and action:
+     integer fields, masks, grids, done and observations equal, rewards and
+     info within 1e-5
+ 11. [reset -> kernel]: ``fused_rollout.init_leaves`` on the card (flagship,
+     web default), one chunk of the kernel held to its plain version from
+     the same leaves, as in phase 5
+ 12. the entry point ``graft_entry.dryrun_multigpu(2)``, from reset boards
 
 Every timed window follows at least ``WARM_S`` seconds of chained launches:
 a card fresh from idle runs its first ~50 ms slower while its clock ramps.
@@ -175,14 +196,18 @@ def phase_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+    print(f"[device] {name}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    print(_card(), flush=True)
+    return name
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"[device] {name}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
-    print(smi, flush=True)
-    return name
 
 
 def phase_build():
@@ -622,6 +647,308 @@ def phase_sharded(params, block, ref_mean):
     return launches + sum(res["launches"] for res in ranks), rate
 
 
+# ---------------------------------------------------------------------------
+# The general stepper (env/core.py) and the random-policy baseline
+# ---------------------------------------------------------------------------
+
+#: the [stepper] configs and JAX simulate's numbers for them (recorded by
+#: ``PYTHONPATH=. python tests/test_torch_core.py``)
+STEPPER_FIXTURE = FIXTURES / "torch_stepper_means.json"
+#: steps of the invariant-checked loop of each config; standard errors the
+#: mean return may sit from JAX's
+STEPPER_STEPS, STEPPER_SE = 20, 4.0
+#: boards and steps of the card == CPU replay, and its configs
+CARD_CPU_BATCH, CARD_CPU_STEPS = 512, 10
+CARD_CPU_CONFIGS = ("flagship", "both")
+#: [reset -> kernel]: configs (a [stepper] config, and the logical block of
+#: the matrix row with its reward)
+RESET_KERNEL = {"flagship": 256, "varpin_web": 256}
+
+
+def _stepper_params(name):
+    from placement_tpu_torch.utils.config import load_env_params
+    want = json.loads(STEPPER_FIXTURE.read_text())[name]
+    return load_env_params(want["config"]).replace(**want["overrides"]), want
+
+
+def _free_by_conv(grid, ph, pw):
+    """bool[B, H, W]: a ph x pw footprint anchored at the cell lies in the
+    grid over free cells, by a convolution of the occupancy (independent of
+    ``ops/sat.py``); one convolution per footprint the boards use."""
+    import torch
+    b, h, w = grid.shape
+    occ = grid.to(torch.float32)[:, None]
+    out = torch.zeros((b, h, w), dtype=torch.bool, device=grid.device)
+    for a, c in {(int(p), int(q)) for p, q in zip(ph.tolist(), pw.tolist())}:
+        if a > h or c > w:
+            continue
+        win = torch.nn.functional.conv2d(
+            occ, torch.ones((1, 1, a, c), device=grid.device))[:, 0] == 0
+        free = torch.zeros_like(out)
+        free[:, :h - a + 1, :w - c + 1] = win
+        out = torch.where(((ph == a) & (pw == c))[:, None, None], free, out)
+    return out
+
+
+def _check_step(label, params, before, after, reward, done):
+    """Invariants of one auto-reset step of a random legal policy: occupied
+    cells = the placed components' area; every legal cell free for its
+    footprint; done boards hold fresh instances; the others placed one
+    component; rewards finite."""
+    import torch
+    c = params.max_components
+    area = (after.comp_h * after.comp_w).long()
+    placed = torch.arange(c, device=area.device)[None, :] < after.cursor[:, None]
+    if params.variant == 0:      # SQUARE: n x n components without a table
+        want = after.cursor.long() * params.component_n ** 2
+    else:
+        want = (area * placed).sum(dim=1)
+    _check(torch.equal(after.grid.long().sum(dim=(1, 2)), want),
+           f"{label}: occupied cells != placed area")
+    cur = after.cursor.long().clamp(max=c - 1)[:, None]
+    ch = after.comp_h.gather(1, cur)[:, 0]
+    cw = after.comp_w.gather(1, cur)[:, 0]
+    for o in range(after.action_mask.shape[1]):
+        ph, pw = (ch, cw) if o % 2 == 0 else (cw, ch)
+        free = _free_by_conv(after.grid, ph, pw)
+        _check(not bool((after.action_mask[:, o] & ~free).any()),
+               f"{label}: a legal cell is not free for its footprint")
+    d = done
+    _check(bool((after.cursor[d] == 0).all() and (after.steps[d] == 0).all()
+                and (after.grid[d] == 0).all() and (after.comp_x[d] == -1).all()
+                and (after.pin_abs_x[d] == -1).all()
+                and after.action_mask[d].flatten(1).any(dim=1).all()),
+           f"{label}: a done board holds no fresh instance")
+    _check(bool((after.cursor[~d] == before.cursor[~d] + 1).all()
+                and (after.steps[~d] == before.steps[~d] + 1).all()),
+           f"{label}: a live board did not place one component")
+    _check(bool(torch.isfinite(reward).all()), f"{label}: reward not finite")
+
+
+def _checked_steps(label, params, steps, batch, gen):
+    """``steps`` auto-reset steps of the random policy through
+    ``core.make_batched`` on the card, every step's invariants checked; the
+    steps themselves run with PyTorch's sync debug mode set to raise, so a
+    step that waits for the card fails. Returns the episodes ended."""
+    import torch
+    from placement_tpu_torch.agent import random_policy
+    from placement_tpu_torch.env import core
+    reset_b, step_b, obs_b = core.make_batched(params, "cuda")
+    state = reset_b(gen, batch)
+    episodes = 0
+    for _ in range(steps):
+        mask = state.action_mask
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            action = random_policy.random_action(gen, params, mask)
+            after, reward, done, _ = step_b(state, action, gen)
+            obs = obs_b(after)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _check_step(label, params, state, after, reward, done)
+        _check(all(bool(torch.isfinite(v).all()) for v in obs.values()),
+               f"{label}: observation not finite")
+        episodes += int(done.sum())
+        state = after
+    return episodes
+
+
+def _simulate_mean(label, name, params, gen):
+    """``random_policy.simulate`` on the card at ``BATCH`` boards and
+    episodes, its mean return held to JAX's (the fixture) within
+    ``STEPPER_SE`` combined standard errors. Returns (seconds, |delta|,
+    combined standard error)."""
+    import torch
+    from placement_tpu_torch.agent import random_policy
+    want = json.loads(STEPPER_FIXTURE.read_text())[name]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ret = random_policy.simulate(params, gen, BATCH, batch=BATCH,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _check(tuple(ret.shape) == (BATCH,) and bool(torch.isfinite(ret).all()),
+           f"{label}: simulate returns")
+    r = ret.double()
+    mean, se = float(r.mean()), float(r.std() / BATCH ** 0.5)
+    both = (se ** 2 + want["se"] ** 2) ** 0.5
+    delta = mean - want["mean"]
+    print(f"[stepper] {label}: simulate mean return {mean!r} (se {se!r}, "
+          f"{BATCH} episodes) vs JAX {want['mean']!r} (se {want['se']!r}, "
+          f"{want['episodes']} episodes): delta {delta!r} = "
+          f"{delta / both!r} combined se", flush=True)
+    _check(abs(delta) <= STEPPER_SE * both, f"{label}: mean return")
+    return dt
+
+
+def _launches_per_step(params, gen):
+    """Kernels the card runs in one auto-reset step at ``BATCH`` boards and
+    their busy time, from ``torch.profiler`` (None when it records no
+    device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from placement_tpu_torch.agent import random_policy
+    from placement_tpu_torch.env import core
+    reset_b, step_b, _ = core.make_batched(params, "cuda")
+    state = reset_b(gen, BATCH)
+    step_b(state, random_policy.random_action(gen, params, state.action_mask),
+           gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        action = random_policy.random_action(gen, params, state.action_mask)
+        step_b(state, action, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    return len(kernels), busy, wall * 1e3
+
+
+def phase_stepper(gen):
+    """[stepper], the flagship at full width: invariant-checked steps, the
+    launches of a step, then ``simulate`` twice (warm-up, timed) at 4096
+    boards and 102 steps; returns env-steps/s."""
+    params, _ = _stepper_params("flagship")
+    label = "flagship (configs/rectangle_pin_model.json)"
+    ended = _checked_steps(label, params, STEPPER_STEPS, BATCH, gen)
+    print(f"[stepper] {label}: {STEPPER_STEPS} checked steps x {BATCH} "
+          f"boards, {ended} episodes ended, no sync inside a step")
+    per_step = _launches_per_step(params, gen)
+    if per_step is None:
+        print("[stepper] launches per step: not measured (the profiler "
+              "recorded no device events)")
+    else:
+        n, busy, wall = per_step
+        print(f"[stepper] one auto-reset step, {BATCH} boards: {n} kernel "
+              f"launches, device busy {busy!r} ms of {wall!r} ms wall "
+              f"(idle share {1 - busy / wall!r})")
+    _simulate_mean(label + " warm-up", "flagship", params, gen)
+    dt = _simulate_mean(label, "flagship", params, gen)
+    steps = params.area + 2
+    rate = BATCH * steps / dt
+    print(f"[stepper] {label}: random_policy.simulate, {BATCH} boards x "
+          f"{steps} steps in {dt!r} s: {rate!r} env-steps/s; {_card()}",
+          flush=True)
+    return rate
+
+
+def phase_stepper_families(gen):
+    """[stepper], the other families at ``BATCH`` boards: invariant-checked
+    steps and the mean return of ``simulate``; returns env-steps/s of each
+    simulate call (one call, not warmed up)."""
+    rates = {}
+    for name in ("square", "rectangle", "rectangle_spatial_pin",
+                 "varpin_web", "beam", "both"):
+        params, want = _stepper_params(name)
+        label = f"{name} ({want['config']} {want['overrides']})"
+        ended = _checked_steps(label, params, STEPPER_STEPS, BATCH, gen)
+        dt = _simulate_mean(label, name, params, gen)
+        rates[name] = BATCH * (params.area + 2) / dt
+        print(f"[stepper] {label}: {STEPPER_STEPS} checked steps, {ended} "
+              f"episodes ended; simulate {rates[name]!r} env-steps/s")
+    return rates
+
+
+def phase_stepper_card_cpu(gen):
+    """[stepper card == cpu]: the card's states and actions of
+    ``CARD_CPU_STEPS`` auto-reset steps, each raw ``step`` + ``observe``
+    replayed on the CPU from the same state: integer fields, masks, grids,
+    done and observations equal; rewards and info within 1e-5."""
+    import torch
+    from placement_tpu_torch.agent import random_policy
+    from placement_tpu_torch.env import core
+    from placement_tpu_torch.env.types import STATE_FIELDS, EnvState
+    worst = 0.0
+    for name in CARD_CPU_CONFIGS:
+        params, _ = _stepper_params(name)
+        state = core.reset(params, gen, CARD_CPU_BATCH, "cuda")
+        for t in range(CARD_CPU_STEPS):
+            action = random_policy.random_action(gen, params,
+                                                 state.action_mask)
+            card, reward, done, info = core.step(params, state, action)
+            cpu, c_reward, c_done, c_info = core.step(
+                params, state.to("cpu"), action.cpu())
+            card_cpu = card.to("cpu")
+            for f in STATE_FIELDS:
+                a, b = getattr(card_cpu, f), getattr(cpu, f)
+                if a.dtype == torch.float32:
+                    worst = max(worst, float((a - b).abs().max()))
+                    _check(torch.allclose(a, b, rtol=0, atol=1e-5),
+                           f"{name} step {t}: {f} card != cpu")
+                else:
+                    _check(torch.equal(a, b), f"{name} step {t}: {f} "
+                                              "card != cpu")
+            err = float((reward.cpu() - c_reward).abs().max())
+            worst = max(worst, err)
+            _check(err <= 1e-5 and torch.equal(done.cpu(), c_done),
+                   f"{name} step {t}: reward / done card != cpu")
+            obs_card, obs_cpu = core.observe(params, card), core.observe(
+                params, cpu)
+            for k, v in obs_cpu.items():
+                _check(torch.equal(obs_card[k].cpu(), v),
+                       f"{name} step {t}: observation {k} card != cpu")
+            fresh = core.reset(params, gen, CARD_CPU_BATCH, "cuda")
+            state = EnvState.where(done, fresh, card)
+        print(f"[stepper card == cpu] {name}: {CARD_CPU_STEPS} steps x "
+              f"{CARD_CPU_BATCH} boards: integer fields, masks, grids, done "
+              f"and observations equal; worst |reward or info diff| "
+              f"{worst!r}", flush=True)
+    return worst
+
+
+def phase_reset_kernel(name, block, gen):
+    """[reset -> kernel]: ``init_leaves`` on the card, then one 50-step chunk
+    of the CUDA kernel from those boards against its plain version from the
+    same leaves (phase 5's rule: leaves and done counts equal, board sums
+    equal, within 1e-5 where the centroid route's terms are added in
+    another order). Returns (launches, max abs error)."""
+    import torch
+    from placement_tpu_torch.ops import fused_rollout as fr
+    params, _ = _stepper_params(name)
+    leaves = fr.init_leaves(params, gen, BATCH, "cuda")
+    _check(int(leaves["cursor"].sum()) == 0
+           and bool((leaves["plane0"].sum(1) > 0).all()),
+           f"{name}: init_leaves are not fresh boards")
+    fn = fr.make_fused_rollout(params, BATCH, STEPS, block=block,
+                               device="cuda")
+    fn.launches = 0
+    got, got_r, got_d = fn.per_board(leaves, 1)
+    launches = fn.launches
+    want, want_r, want_d = fr.rollout_chunk_reference(params, leaves, 1,
+                                                      STEPS, block)
+    torch.cuda.synchronize()
+    bad = [k for k in fr._LEAVES if not torch.equal(got[k], want[k])]
+    err = float((got_r - want_r).abs().max())
+    print(f"[reset -> kernel] {name} ({fn.kernel} kernel): {BATCH} reset "
+          f"boards, block {block}, {STEPS} steps: leaves differing {bad}, "
+          f"done counts equal {torch.equal(got_d, want_d)}, max |board "
+          f"reward diff| {err!r} (equal: {torch.equal(got_r, want_r)}), "
+          f"{int(got_d.sum())} episodes; launches {launches}", flush=True)
+    _check(not bad and torch.equal(got_d, want_d),
+           f"{name}: kernel from reset boards differs from the plain version")
+    _check(err <= 1e-5, f"{name}: board rewards differ")
+    _check(launches == 1, f"{name}: the path missed the kernel")
+    return launches, err
+
+
+def phase_dryrun():
+    """The entry point ``graft_entry.dryrun_multigpu(2)``: two spawned ranks
+    sharing the card, from reset boards. Returns its kernel launches."""
+    from placement_tpu_torch import graft_entry
+    results = graft_entry.dryrun_multigpu(2)
+    launches = sum(res["launches"] for res in results)
+    print(f"[entry point] graft_entry.dryrun_multigpu(2): totals "
+          f"{results[0]['totals']}, launches {[r['launches'] for r in results]}",
+          flush=True)
+    _check(launches == 2, "the dry run missed the kernel")
+    return launches
+
+
 def main():
     device_name = phase_device()
     import torch
@@ -687,11 +1014,23 @@ def main():
         _golden_params(web), VARPIN["varpin_web"],
         (web["reward_sum"] - web["batch"] * pen)
         / (web["done_count"] - web["batch"]))
+    # the general stepper: eager PyTorch, no kernel of its own; then the
+    # kernel from its reset boards, and the dry run from reset boards
+    gen = torch.Generator("cuda").manual_seed(2024)
+    stepper_rate = phase_stepper(gen)
+    family_rates = phase_stepper_families(gen)
+    card_cpu_err = phase_stepper_card_cpu(gen)
+    reset_err = {}
+    for name, block in RESET_KERNEL.items():
+        kernel = "centroid" if name == "flagship" else "varpin"
+        n, reset_err[kernel] = phase_reset_kernel(name, block, gen)
+        launches[kernel] += n
+    launches["varpin"] += phase_dryrun()
     # no one PyTorch call computes a chunk: library_ms is null
     entries = []
     for k, (row, *_, replaces) in KERNELS.items():
         err, ms, plain_ms, bound_ms, bound_by = results[row]
-        err = max(err, partial_err.get(k, 0.0))
+        err = max(err, partial_err.get(k, 0.0), reset_err.get(k, 0.0))
         entries.append({
             "name": f"fused_rollout_{k}",
             "route": "cuda",
@@ -716,7 +1055,8 @@ def main():
         "replaces": "placement_tpu/ops/fused_rollout.py:866 (PIN, max_ppn "
                     "> min_ppn, :399-450)",
         "launches": launches["varpin"],
-        "max_abs_err": max(err, results["varpin_parity"][0]),
+        "max_abs_err": max(err, results["varpin_parity"][0],
+                           reset_err["varpin"]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -731,6 +1071,9 @@ def main():
           f"{results['varpin_parity'][2]!r} ms")
     print(f"[main path 3] one rank {rate3!r} env-steps/s vs 4096 x 50 / "
           f"kernel ms {BATCH * STEPS / results['varpin_web'][1] * 1e3!r}")
+    print(f"[stepper] flagship {stepper_rate!r} env-steps/s; others "
+          f"{family_rates!r}; card == cpu worst reward/info diff "
+          f"{card_cpu_err!r}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -1,9 +1,11 @@
-"""Environment parameter container (port of ``placement_tpu/env/types.py``).
+"""Environment parameter and state containers (port of
+``placement_tpu/env/types.py``).
 
 ``Variant`` and the frozen ``EnvParams`` are copied field for field, with
 every derived property and ``validate()``, so a config loads to the same
-values in both packages. The JAX file also defines the ``EnvState`` pytree;
-it needs ``flax`` and waits for the port of the batched stepper.
+values in both packages. ``EnvState`` holds the JAX pytree's fields as
+tensors with a leading batch dimension: the JAX functions are written per
+board and ``vmap``-ed, the port's take the whole batch.
 """
 
 from __future__ import annotations
@@ -11,7 +13,10 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Any
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
 
 
 class Variant(enum.IntEnum):
@@ -179,3 +184,117 @@ class EnvParams:
 
     def replace(self, **kw: Any) -> "EnvParams":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
+class EnvState:
+    """A batch of boards' full state (the JAX ``EnvState``, :197-254).
+
+    Every field has a leading batch dimension ``B`` (H, W = grid; O =
+    orientations; C = max_components; P = max_pins). There is no ``key``:
+    randomness comes from an explicit ``torch.Generator`` passed to
+    ``core.reset`` / ``core.step_autoreset``. Integer fields are int32 as in
+    JAX; indices are cast to int64 where they index.
+    """
+
+    # Board occupancy; 1 = occupied.
+    grid: torch.Tensor            # i32[B, H, W]
+    # Legal-action planes per orientation.
+    action_mask: torch.Tensor     # bool[B, O, H, W]
+
+    # Component table.
+    comp_h: torch.Tensor          # i32[B, C] original height (never rotated)
+    comp_w: torch.Tensor          # i32[B, C]
+    comp_x: torch.Tensor          # i32[B, C] top-left row, -1 when unplaced
+    comp_y: torch.Tensor          # i32[B, C]
+    num_components: torch.Tensor  # i32[B]
+    cursor: torch.Tensor          # i32[B] current component (== num_components when all placed)
+
+    # Pin table (pin variants only; length-1 dummies otherwise).
+    pin_rel_x: torch.Tensor       # i32[B, P] rotation-updated relative row
+    pin_rel_y: torch.Tensor       # i32[B, P]
+    pin_abs_x: torch.Tensor       # i32[B, P] absolute row; -1 until placed
+    pin_abs_y: torch.Tensor       # i32[B, P]
+    pin_net: torch.Tensor         # i32[B, P] net id, -1 for padding
+    pin_comp: torch.Tensor        # i32[B, P] owning component, -1 for padding
+    pin_local: torch.Tensor       # i32[B, P] id within component (PIN) or global id (PIN_SPATIAL)
+    pin_rel_x0: torch.Tensor      # i32[B, P] reset-time relative row
+    pin_rel_y0: torch.Tensor      # i32[B, P]
+    num_nets: torch.Tensor        # i32[B]
+    num_pins: torch.Tensor        # i32[B]
+
+    # Episode bookkeeping.
+    done: torch.Tensor            # bool[B]
+    steps: torch.Tensor           # i32[B]
+
+    # Terminal-reward components surfaced in `info`.
+    info_wirelength: torch.Tensor     # f32[B]
+    info_intersections: torch.Tensor  # f32[B]
+
+    @property
+    def batch(self) -> int:
+        return self.done.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.grid.device
+
+    @property
+    def comp_valid(self) -> torch.Tensor:
+        c = self.comp_h.shape[1]
+        return (torch.arange(c, device=self.device)[None, :]
+                < self.num_components[:, None])
+
+    @property
+    def comp_placed(self) -> torch.Tensor:
+        c = self.comp_h.shape[1]
+        return (torch.arange(c, device=self.device)[None, :]
+                < self.cursor[:, None])
+
+    @property
+    def pin_valid(self) -> torch.Tensor:
+        return self.pin_net >= 0
+
+    def replace(self, **kw: Any) -> "EnvState":
+        return dataclasses.replace(self, **kw)
+
+    def to(self, device: Union[str, torch.device]) -> "EnvState":
+        return EnvState(**{f: getattr(self, f).to(device)
+                           for f in STATE_FIELDS})
+
+    @staticmethod
+    def where(mask: torch.Tensor, a: "EnvState", b: "EnvState") -> "EnvState":
+        """Per board: ``a``'s fields where ``mask`` (bool[B]), else ``b``'s
+        (the auto-reset select, JAX ``core.py:393-396``)."""
+        def sel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+            return torch.where(mask.view((-1,) + (1,) * (x.dim() - 1)), x, y)
+        return EnvState(**{f: sel(getattr(a, f), getattr(b, f))
+                           for f in STATE_FIELDS})
+
+
+#: EnvState's fields, in declaration order
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(EnvState))
+_BOOL_FIELDS = ("action_mask", "done")
+_FLOAT_FIELDS = ("info_wirelength", "info_intersections")
+
+
+def _field_dtype(name: str) -> torch.dtype:
+    if name in _BOOL_FIELDS:
+        return torch.bool
+    return torch.float32 if name in _FLOAT_FIELDS else torch.int32
+
+
+def state_from_numpy(arrays: Dict[str, np.ndarray],
+                     device: Union[str, torch.device]) -> EnvState:
+    """A batched state as numpy arrays keyed by field name (e.g. a JAX
+    ``EnvState``'s fields; a ``key`` entry is ignored) -> the port's
+    ``EnvState`` on ``device``: bool masks, f32 info, int32 the rest."""
+    return EnvState(**{f: torch.as_tensor(np.array(arrays[f]))
+                       .to(device=device, dtype=_field_dtype(f))
+                       for f in STATE_FIELDS})
+
+
+def state_to_numpy(state: EnvState) -> Dict[str, np.ndarray]:
+    """The inverse of ``state_from_numpy``."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in STATE_FIELDS}

@@ -4,9 +4,10 @@
 
 ``dryrun_multigpu(n)`` is the fused half of ``dryrun_multichip`` (:104-121):
 the fused rollout sharded over ``n`` ranks on that function's reduced
-config. The learner half (``shard_learner`` and the full PPO train step)
-waits for the port of the models and the learner (ROADMAP.md queue 1 items
-5-6); ``entry`` (a model's forward step) is item 7.
+config, from boards fresh from the stepper's reset. The learner half
+(``shard_learner`` and the full PPO train step) waits for the port of the
+models and the learner (ROADMAP.md queue 1 items 5-6); ``entry`` (a model's
+forward step) is item 7.
 """
 
 from __future__ import annotations
@@ -15,8 +16,7 @@ import math
 import sys
 from typing import Any, List
 
-import torch
-
+from placement_tpu_torch.env import core
 from placement_tpu_torch.env.types import EnvParams
 from placement_tpu_torch.parallel import mesh
 from placement_tpu_torch.utils.config import load_env_params
@@ -40,18 +40,18 @@ def dryrun_params() -> EnvParams:
 
 
 def dryrun_multigpu(n_ranks: int, device: str = "cuda") -> List[Any]:
-    """One 4-step chunk of ``4 * n_ranks`` all-done zero boards, seed 11,
-    sharded over ``n_ranks`` spawned ranks on ``device``: by default the
-    GPUs (ranks beyond the card count share cards); ``"cpu"`` runs the
-    ranks on the CPU. Raises without a CUDA device unless the CPU is asked
-    for, and unless the reduced reward is finite; returns the ranks'
-    results (``mesh.rollout_rank``)."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("dryrun_multigpu: no CUDA device; pass "
-                           "device='cpu' to run the ranks on the CPU")
+    """One 4-step chunk, seed 11, of ``4 * n_ranks`` boards fresh from the
+    stepper's reset (``init_leaves``, as ``__graft_entry__.py:116-117``;
+    each rank draws its 4 from a generator seeded 2 + rank), sharded over
+    ``n_ranks`` spawned ranks on ``device``: by default the GPUs (ranks
+    beyond the card count share cards); ``"cpu"`` runs the ranks on the
+    CPU. Raises without a CUDA device unless the CPU is asked for, and
+    unless the reduced reward is finite; returns the ranks' results
+    (``mesh.reset_rollout_rank``)."""
+    core.check_device(device, "dryrun_multigpu")
     results = mesh.spawn_ranks(
-        mesh.rollout_rank, n_ranks,
-        args=(dryrun_params(), 4 * n_ranks, 4, 128, [11], device),
+        mesh.reset_rollout_rank, n_ranks,
+        args=(dryrun_params(), 4 * n_ranks, 4, 128, [11], 2, device),
         backend=mesh.backend_for(device, n_ranks))
     reward = results[0]["totals"][0][0]
     if not math.isfinite(reward):

@@ -606,6 +606,40 @@ def zero_leaves(params: EnvParams, batch: int,
             for n, w in leaf_widths(params).items()}
 
 
+def init_leaves(params: EnvParams, gen: torch.Generator, batch: int,
+                device: Device = "cuda") -> Dict[str, torch.Tensor]:
+    """``batch`` fresh boards from the stepper's reset (``env/core.py``) in
+    the kernel's row layout, on ``device`` (``gen`` a ``torch.Generator``
+    there), the JAX ``init_leaves`` (:775-780). Raises without a card
+    unless ``device`` is the CPU."""
+    from placement_tpu_torch.env import core
+    device = core.check_device(device, "init_leaves")
+    return leaves_from_states(params, core.reset(params, gen, batch, device))
+
+
+def leaves_from_states(params: EnvParams, states) -> Dict[str, torch.Tensor]:
+    """A batched ``EnvState`` -> the kernel's row layout (reshapes and
+    casts, JAX :783-806)."""
+    b = states.batch
+    mask = states.action_mask
+    return {
+        "grid": states.grid.reshape(b, -1).to(F32),
+        "comp_h": states.comp_h.to(I32), "comp_w": states.comp_w.to(I32),
+        "cursor": states.cursor.reshape(b, 1).to(I32),
+        "num_components": states.num_components.reshape(b, 1).to(I32),
+        "pin_rel_x": states.pin_rel_x.to(I32),
+        "pin_rel_y": states.pin_rel_y.to(I32),
+        "pin_abs_x": states.pin_abs_x.to(I32),
+        "pin_abs_y": states.pin_abs_y.to(I32),
+        "pin_net": states.pin_net.to(I32), "pin_comp": states.pin_comp.to(I32),
+        "num_pins": states.num_pins.reshape(b, 1).to(I32),
+        "plane0": mask[:, 0].reshape(b, -1).to(F32),
+        # the square variant has one orientation plane; the kernel never
+        # reads plane1 when num_orientations == 1
+        "plane1": mask[:, min(1, mask.shape[1] - 1)].reshape(b, -1).to(F32),
+    }
+
+
 def leaves_from_numpy(arrays: Dict[str, np.ndarray],
                       device: Device) -> Dict[str, torch.Tensor]:
     """Leaves as numpy arrays (e.g. the JAX package's) -> the port's

@@ -214,23 +214,27 @@ def _seg_intersect(ax1, ay1, ax2, ay2, bx1, by1, bx2, by2) -> torch.Tensor:
 
 def _first_where(cond: torch.Tensor, iota_m: torch.Tensor,
                  M: int) -> torch.Tensor:
-    """Lowest lane index where ``cond`` holds (M if none) — [B,1] i32.
-    Replicates argsort/argmax first-wins tie-breaking."""
-    return torch.where(cond, iota_m, M).amin(dim=1, keepdim=True)
+    """Lowest lane index (last dim) where ``cond`` holds (M if none), kept
+    as a size-1 last dim. Replicates argsort/argmax first-wins
+    tie-breaking."""
+    return torch.where(cond, iota_m, M).amin(dim=-1, keepdim=True)
 
 
 def _at(arr: torch.Tensor, idx: torch.Tensor,
         iota_m: torch.Tensor) -> torch.Tensor:
-    """arr[b, idx[b]] as a [B,1] column (idx < M; 0.0 if idx == M)."""
+    """arr[..., idx] over the last dim, kept as a size-1 last dim (idx < M;
+    0.0 if idx == M)."""
     return torch.where(iota_m == idx, arr,
                        torch.zeros((), dtype=arr.dtype, device=arr.device)
-                       ).sum(dim=1, keepdim=True)
+                       ).sum(dim=-1, keepdim=True)
 
 
 def _lex_less(cost_a, pk_a, cost_b, pk_b, iota_m, M: int) -> torch.Tensor:
     """Heap ordering (routing._heap_order): (cost, path point keys
-    lexicographically from position 0). Strict less — equal candidates
-    compare False, so iteration order supplies lexsort's stability."""
+    lexicographically from position 0, the last dim; leading dims
+    broadcast). Strict less — equal candidates compare False, so iteration
+    order supplies lexsort's stability. ``env/routing.py::_heap_order``
+    ranks all candidate pairs by it."""
     pos = _first_where(pk_a != pk_b, iota_m, M)
     va = _at(pk_a, pos, iota_m)
     vb = _at(pk_b, pos, iota_m)

@@ -155,15 +155,36 @@ def chain_chunks(fn: _ShardedRollout, state: Dict[str, torch.Tensor],
             "launches": fn.local.launches}
 
 
+def _rank_device(rank: int, device: str) -> str:
+    """A CUDA rank's card: ``rank % device_count``, made current."""
+    if device == "cuda":
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    return device
+
+
 def rollout_rank(rank: int, world: int, params: EnvParams, batch: int,
                  num_steps: int, block: int, seeds: Sequence[int],
                  device: str = "cuda") -> Dict[str, Any]:
     """One rank of a sharded run (a ``spawn_ranks`` worker): this rank's
     ``batch // world`` all-done zero boards through ``shard_fused_rollout``
     (``chain_chunks``). A CUDA rank takes card ``rank % device_count``."""
-    if device == "cuda":
-        device = f"cuda:{rank % torch.cuda.device_count()}"
-        torch.cuda.set_device(device)
+    device = _rank_device(rank, device)
     fn = shard_fused_rollout(params, batch, num_steps, block, device)
     return chain_chunks(
         fn, fused_rollout.zero_leaves(params, batch // world, device), seeds)
+
+
+def reset_rollout_rank(rank: int, world: int, params: EnvParams, batch: int,
+                       num_steps: int, block: int, seeds: Sequence[int],
+                       reset_seed: int, device: str = "cuda"
+                       ) -> Dict[str, Any]:
+    """``rollout_rank`` from reset boards: this rank's ``batch // world``
+    fresh instances of the stepper's reset (``fused_rollout.init_leaves``,
+    a generator on the rank's device seeded ``reset_seed + rank``)."""
+    device = _rank_device(rank, device)
+    fn = shard_fused_rollout(params, batch, num_steps, block, device)
+    gen = torch.Generator(device).manual_seed(reset_seed + rank)
+    return chain_chunks(
+        fn, fused_rollout.init_leaves(params, gen, batch // world, device),
+        seeds)

@@ -417,7 +417,11 @@ def test_reduced_kernels_are_warp_kernels():
 
 #: every module of the port, and the smoke script (its main is guarded)
 PORT_MODULES = (
-    "placement_tpu_torch.env.types", "placement_tpu_torch.graft_entry",
+    "placement_tpu_torch.env.types", "placement_tpu_torch.env.core",
+    "placement_tpu_torch.env.generator", "placement_tpu_torch.env.routing",
+    "placement_tpu_torch.env.wrappers", "placement_tpu_torch.env.testing",
+    "placement_tpu_torch.ops.sat", "placement_tpu_torch.agent.random_policy",
+    "placement_tpu_torch.graft_entry",
     "placement_tpu_torch.ops._build", "placement_tpu_torch.ops.fused_rollout",
     "placement_tpu_torch.ops.fused_routing",
     "placement_tpu_torch.parallel.mesh", "placement_tpu_torch.tools.bench_matrix",

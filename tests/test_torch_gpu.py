@@ -12,6 +12,9 @@ import re
 import pytest
 import torch
 
+from placement_tpu_torch.agent import random_policy
+from placement_tpu_torch.env import core
+from placement_tpu_torch.env.types import STATE_FIELDS, EnvState
 from placement_tpu_torch.ops import _build
 from placement_tpu_torch.ops import fused_rollout as torch_fused
 from placement_tpu_torch.parallel import mesh
@@ -344,3 +347,98 @@ def test_cuda_library_has_only_warp_kernels(cuda):
             frame = int(re.search(r"(\d+) bytes stack frame",
                                   props).group(1))
             assert frame <= 64 and " 0 bytes spill stores" in props
+
+
+# ---------------------------------------------------------------------------
+# The general stepper (env/core.py) on the card
+# ---------------------------------------------------------------------------
+
+STEPPER_CASES = [("rectangle_pin", {}), ("rectangle_pin", {"reward_type": "both"}),
+                 ("rectangle_pin", {"reward_type": "beam",
+                                    "min_num_pins_per_net": 2}),
+                 ("rectangle_spatial_pin", {}), ("square", {}),
+                 ("rectangle", {})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,overrides", STEPPER_CASES)
+def test_cuda_step_and_observe_match_cpu(cuda, name, overrides):
+    """From the same states and actions, ``step`` and ``observe`` on the card
+    give the CPU's results: integer fields, masks, grids, done and the
+    observations equal; rewards and info within 1e-5."""
+    params = load_env_params(name).replace(**overrides)
+    gen = torch.Generator(cuda).manual_seed(3)
+    state = core.reset(params, gen, 256, cuda)
+    for _ in range(8):
+        action = random_policy.random_action(gen, params, state.action_mask)
+        card, reward, done, _ = core.step(params, state, action)
+        cpu, c_reward, c_done, _ = core.step(params, state.to("cpu"),
+                                             action.cpu())
+        for f in STATE_FIELDS:
+            a, b = getattr(card, f).cpu(), getattr(cpu, f)
+            if a.dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+            else:
+                assert torch.equal(a, b), f
+        torch.testing.assert_close(reward.cpu(), c_reward, rtol=0, atol=1e-5)
+        assert torch.equal(done.cpu(), c_done)
+        obs_card = core.observe(params, card)
+        for k, v in core.observe(params, cpu).items():
+            assert torch.equal(obs_card[k].cpu(), v), k
+        state = EnvState.where(done, core.reset(params, gen, 256, cuda), card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rectangle_pin", "rectangle_spatial_pin"])
+def test_cuda_step_never_waits_for_the_card(cuda, name):
+    """An auto-reset step and the random policy's action enqueue their work
+    without a host sync (PyTorch's sync debug mode raises on one)."""
+    params = load_env_params(name)
+    reset_b, step_b, obs_b = core.make_batched(params, cuda)
+    gen = torch.Generator(cuda).manual_seed(4)
+    state = reset_b(gen, 512)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(6):
+            action = random_policy.random_action(gen, params,
+                                                 state.action_mask)
+            state, reward, done, _ = step_b(state, action, gen)
+            obs_b(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(reward).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overrides,block", [({}, 256),
+                                             ({"min_num_pins_per_net": 2}, 256),
+                                             ({"reward_type": "both"}, 128)])
+def test_cuda_init_leaves_feed_the_kernel(cuda, overrides, block):
+    """``init_leaves`` on the card: fresh boards that the kernel runs from
+    exactly as its plain version does."""
+    params = load_env_params("rectangle_pin").replace(**overrides)
+    leaves = torch_fused.init_leaves(params, torch.Generator(cuda)
+                                     .manual_seed(5), 1024, cuda)
+    assert int(leaves["cursor"].sum()) == 0
+    assert bool((leaves["plane0"].sum(1) > 0).all())
+    fn = torch_fused.make_fused_rollout(params, 1024, 50, block=block,
+                                        device=cuda)
+    got, got_r, got_d = fn.per_board(leaves, 1)
+    want, want_r, want_d = torch_fused.rollout_chunk_reference(
+        params, leaves, 1, 50, block)
+    for k in torch_fused._LEAVES:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got_d, want_d)
+    torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-5)
+    assert fn.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["square", "rectangle", "rectangle_pin"])
+def test_cuda_simulate_returns_finite_episodes(cuda, name):
+    params = load_env_params(name)
+    returns = random_policy.simulate(params, torch.Generator(cuda)
+                                     .manual_seed(0), 512, batch=512,
+                                     device=cuda)
+    assert returns.device.type == "cuda" and returns.shape == (512,)
+    assert bool(torch.isfinite(returns).all())

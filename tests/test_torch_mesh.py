@@ -13,6 +13,7 @@ sums agree within 1e-4 (f32 sums of ~40 taken in another order).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,10 +23,12 @@ import torch
 import torch.distributed as dist
 from jax.sharding import NamedSharding
 
+from placement_tpu.env import core as jax_core
 from placement_tpu.ops import fused_rollout as jax_fused
 from placement_tpu.parallel import mesh as jax_mesh
 from placement_tpu.utils.config import load_experiment
 from placement_tpu_torch import graft_entry
+from placement_tpu_torch.env.types import STATE_FIELDS, state_from_numpy
 from placement_tpu_torch.ops import fused_rollout as torch_fused
 from placement_tpu_torch.parallel import mesh
 
@@ -41,9 +44,10 @@ def _one_thread_per_rank(monkeypatch):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_chain(world, batch, block):
     """The JAX sharded rollout's start (numpy) and, per seed, (leaves,
-    reward_sum, done_count)."""
+    reward_sum, done_count); each shape is compiled and run once."""
     params = dataclasses.replace(load_experiment("rectangle_pin")[0],
                                  **graft_entry.DRYRUN_OVERRIDES)
     jmesh = jax_mesh.make_mesh(world)
@@ -59,6 +63,22 @@ def _jax_chain(world, batch, block):
         runs.append(({k: np.asarray(v) for k, v in leaves.items()},
                      float(rsum), int(dcnt)))
     return start, runs
+
+
+def _assert_ranks_match_jax(ranks, jax_runs, batch):
+    want = jax_runs[-1][0]
+    local = batch // len(ranks)
+    for r, res in enumerate(ranks):
+        assert res["launches"] == 0          # CPU ranks run the plain version
+        for k in torch_fused._LEAVES:
+            np.testing.assert_array_equal(
+                res["leaves"][k],
+                want[k].reshape(batch, -1)[r * local:(r + 1) * local],
+                err_msg=f"rank {r} leaf {k}")
+        for (got_r, got_d), (_, want_r, want_d) in zip(res["totals"],
+                                                       jax_runs):
+            assert got_d == want_d
+            assert abs(got_r - want_r) <= RSUM_TOL, (got_r, want_r)
 
 
 def _port_ranks(world, batch, block, seeds):
@@ -88,19 +108,31 @@ def test_sharded_rollout_matches_jax(world, batch, block):
     start, jax_runs = _jax_chain(world, batch, block)
     ranks = mesh.spawn_ranks(_start_rank, world,
                              args=(batch, block, start))
-    want = jax_runs[-1][0]
-    local = batch // world
-    for r, res in enumerate(ranks):
-        assert res["launches"] == 0          # CPU ranks run the plain version
-        for k in torch_fused._LEAVES:
-            np.testing.assert_array_equal(
-                res["leaves"][k],
-                want[k].reshape(batch, -1)[r * local:(r + 1) * local],
-                err_msg=f"rank {r} leaf {k}")
-        for (got_r, got_d), (_, want_r, want_d) in zip(res["totals"],
-                                                       jax_runs):
-            assert got_d == want_d
-            assert abs(got_r - want_r) <= RSUM_TOL, (got_r, want_r)
+    _assert_ranks_match_jax(ranks, jax_runs, batch)
+
+
+def test_sharded_rollout_from_carried_reset_states():
+    """The JAX reset states behind ``init_leaves(PRNGKey(2))``, carried
+    across field by field (``state_from_numpy``) and laid out by the port's
+    ``leaves_from_states``, are the JAX leaves exactly; sharded over 2 CPU
+    ranks they give the JAX ``shard_fused_rollout``'s leaves and totals."""
+    world, batch, block = 2, 8, 128
+    start, jax_runs = _jax_chain(world, batch, block)
+    jp = dataclasses.replace(load_experiment("rectangle_pin")[0],
+                             **graft_entry.DRYRUN_OVERRIDES)
+    states = jax.vmap(lambda k: jax_core.reset(jp, k))(
+        jax.random.split(jax.random.PRNGKey(2), batch))
+    carried = torch_fused.leaves_from_states(
+        graft_entry.dryrun_params(), state_from_numpy(
+            {f: np.asarray(getattr(states, f)) for f in STATE_FIELDS},
+            "cpu"))
+    carried = torch_fused.leaves_to_numpy(carried)
+    for k in torch_fused._LEAVES:
+        np.testing.assert_array_equal(carried[k],
+                                      start[k].reshape(batch, -1), err_msg=k)
+    ranks = mesh.spawn_ranks(_start_rank, world,
+                             args=(batch, block, carried))
+    _assert_ranks_match_jax(ranks, jax_runs, batch)
 
 
 def test_each_rank_runs_its_shard_with_seed_plus_rank():
