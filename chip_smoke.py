@@ -21,7 +21,12 @@ entry points a user calls:
     more);
   * the general stepper, ``random_policy.simulate`` -> ``core.make_batched``
     (reset, step with auto-reset, observe) on every env family and reward,
-    and the fused kernel started from its reset boards.
+    and the fused kernel started from its reset boards;
+  * the policy path: the flagship model with Flax weights carried across
+    (``Policy.load_flax``) acting on 4096 boards through the pooled
+    auto-reset engine (``pooled.rollout_chunk``), the random policy through
+    the same engine, the matrix's ``web_max_pooled`` row on it, and
+    ``graft_entry.entry``.
 
 Phases (any failure raises and the exit code is not 0):
   1. device  — requires CUDA; prints the card and its power limit
@@ -67,6 +72,25 @@ Phases (any failure raises and the exit code is not 0):
      web default), one chunk of the kernel held to its plain version from
      the same leaves, as in phase 5
  12. the entry point ``graft_entry.dryrun_multigpu(2)``, from reset boards
+ 13. [policy]: the flagship model (tests/fixtures/torch_policy_flagship.npz:
+     Flax weights, 64 JAX observations, JAX's outputs) on the card: logits
+     and value within 1e-4 relative of JAX's and the CPU's (cuDNN's TF32
+     off for the whole run), greedy actions JAX's where its top two logits
+     are further apart; the forward's ms at 4096 boards (CUDA events) and
+     its launches (``torch.profiler``)
+ 14. [policy rollout], this slice's main path: that policy sampling on
+     4096 flagship boards through ``pooled.rollout_chunk`` (50-step chunks,
+     pool ``default_pool_size``, route budget 1024), warmed up and timed;
+     wraps 0, 5-step episodes, mean return within 4 combined standard
+     errors of JAX's; launches, busy and idle share of a step; the step's
+     parts profiled one by one
+ 15. [pooled]: the random policy through the same engine (``bench.py``'s
+     pooled phase), its mean return held to JAX ``simulate``'s; gated ==
+     ungated routing on the card (crossings exact, wirelength and reward
+     within one f32 ulp) through the none, compacted and full branches
+ 16. [matrix] web_max_pooled through ``bench_matrix.measure_pooled``: rate,
+     wraps (0), mean episode reward
+ 17. [entry point] ``graft_entry.entry()``: shapes, finite outputs
 
 Every timed window follows at least ``WARM_S`` seconds of chained launches:
 a card fresh from idle runs its first ~50 ms slower while its clock ramps.
@@ -785,28 +809,18 @@ def _launches_per_step(params, gen):
     """Kernels the card runs in one auto-reset step at ``BATCH`` boards and
     their busy time, from ``torch.profiler`` (None when it records no
     device events)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from placement_tpu_torch.agent import random_policy
     from placement_tpu_torch.env import core
     reset_b, step_b, _ = core.make_batched(params, "cuda")
     state = reset_b(gen, BATCH)
-    step_b(state, random_policy.random_action(gen, params, state.action_mask),
-           gen)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        action = random_policy.random_action(gen, params, state.action_mask)
-        step_b(state, action, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        return None
-    busy = sum(e.device_time_total for e in kernels) / 1e3
-    return len(kernels), busy, wall * 1e3
+
+    def step():
+        step_b(state, random_policy.random_action(gen, params,
+                                                  state.action_mask), gen)
+
+    step()
+    _, n, busy, wall = _profiled(step)
+    return None if n is None else (n, busy, wall)
 
 
 def phase_stepper(gen):
@@ -949,6 +963,365 @@ def phase_dryrun():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The policy path: models, Policy.act and the pooled engine
+# ---------------------------------------------------------------------------
+
+#: the flagship policy's Flax weights, 64 JAX observations and JAX's
+#: outputs on them, and JAX's pooled-rollout mean return of that policy
+#: (recorded by ``PYTHONPATH=. python tests/test_torch_policy.py``)
+POLICY_FIXTURE = FIXTURES / "torch_policy_flagship.npz"
+#: logits and value against JAX's and the CPU's: relative, with cuDNN's
+#: TF32 off for the whole run (``phase_device``), f32 sums in another order
+POLICY_RTOL = 1e-4
+#: timed chunks of the pooled paths; forwards timed at 4096 boards
+POOLED_CHUNKS, FORWARDS = 4, 20
+#: the pooled paths' finisher budget (``bench.py:177-198``: batch // 4)
+ROUTE_BUDGET = BATCH // 4
+
+
+def _policy_fixture(device):
+    """(flagship params, the policy with the fixture's weights on
+    ``device``, the fixture's observations there, the fixture)."""
+    import numpy as np
+    import torch
+    from placement_tpu_torch.agent.policy import Policy
+    from placement_tpu_torch.models import convert
+    from placement_tpu_torch.utils.config import load_experiment
+    data = dict(np.load(POLICY_FIXTURE))
+    variables = convert.unflatten({k[4:]: v for k, v in data.items()
+                                   if k.startswith("var/")})
+    params, cfg, _ = load_experiment("rectangle_pin")
+    policy = Policy(params, cfg, device).load_flax(variables)
+    obs = {k[4:]: torch.as_tensor(v, device=device)
+           for k, v in data.items() if k.startswith("obs/")}
+    return params, policy, obs, data
+
+
+def _rel_err(got, want):
+    """max |got - want| / max(1, |want|) over the finite entries (masked
+    logits sit at f32's lowest value in both)."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / np.maximum(1.0, np.abs(want))).max())
+
+
+def phase_policy(gen):
+    """[policy]: the flagship model with the Flax weights carried across
+    (``models/convert.py``) on the card, on the fixture's 64 JAX
+    observations: logits and value within ``POLICY_RTOL`` of JAX's and of
+    the CPU's, greedy actions JAX's wherever JAX's top two logits are
+    further apart; then the forward's ms at 4096 reset boards. Returns the
+    forward's ms."""
+    import numpy as np
+    import torch
+    from placement_tpu_torch.env import core
+    params, card, obs, data = _policy_fixture("cuda")
+    _, cpu, cpu_obs, _ = _policy_fixture("cpu")
+    action, logp, value, logits = card.act(obs, gen, deterministic=True)
+    c_action, _, c_value, c_logits = cpu.act(cpu_obs, torch.Generator(),
+                                             deterministic=True)
+    logits, value = logits.cpu().numpy(), value.cpu().numpy()
+    err_jax = max(_rel_err(logits, data["logits"]),
+                  _rel_err(value, data["value"]))
+    err_cpu = max(_rel_err(logits, c_logits.numpy()),
+                  _rel_err(value, c_value.numpy()))
+    top2 = np.sort(data["logits"], axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > POLICY_RTOL * np.maximum(
+        1.0, np.abs(top2[:, 1]))
+    action = action.cpu().numpy()
+    same_jax = bool((action[clear] == data["greedy"][clear]).all())
+    same_cpu = bool((action[clear] == c_action.numpy()[clear]).all())
+    print(f"[policy] flagship model, Flax weights carried, {len(action)} "
+          f"JAX observations: max rel |logits or value - JAX| {err_jax!r}, "
+          f"- CPU {err_cpu!r} (tolerance {POLICY_RTOL}, TF32 off); greedy "
+          f"actions equal to JAX's on {int(clear.sum())} boards with a clear "
+          f"top logit: {same_jax}, to the CPU's: {same_cpu}; all boards: "
+          f"{int((action == data['greedy']).all(1).sum())} of {len(action)}",
+          flush=True)
+    _check(err_jax <= POLICY_RTOL and err_cpu <= POLICY_RTOL,
+           "policy logits or value differ")
+    _check(same_jax and same_cpu and clear.sum() >= len(clear) // 2,
+           "greedy actions differ")
+    _check(np.isfinite(value).all(), "policy value not finite")
+    _check(np.allclose(logp.cpu().numpy()[clear], data["greedy_logp"][clear],
+                       rtol=POLICY_RTOL, atol=POLICY_RTOL),
+           "greedy logp differs")
+
+    states = core.reset(params, gen, BATCH, "cuda")
+    big = core.observe(params, states)
+    with torch.no_grad():
+        for _ in range(5):
+            card.model(big)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(FORWARDS):
+            out = card.model(big)
+        end.record()
+        torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / FORWARDS
+    _check(tuple(out["logits"].shape) == (BATCH, 400)
+           and bool(torch.isfinite(out["value"]).all()), "forward outputs")
+    with torch.no_grad():
+        _, n, busy, wall = _profiled(lambda: card.model(big))
+    print(f"[policy] forward at {BATCH} boards: {ms!r} ms (CUDA events, "
+          f"{FORWARDS} forwards after 5); one forward profiled: {n} kernel "
+          f"launches, device busy {busy!r} ms of {wall!r} ms wall; "
+          f"{_card()}", flush=True)
+    return ms
+
+
+def _pooled_step_profile(params, policy_fn, gen, pool_size):
+    """Kernels the card runs in one pooled step (``policy_fn`` then
+    ``step_autoreset_pooled`` with ``ROUTE_BUDGET``) at ``BATCH`` boards,
+    their busy ms and the step's wall ms, from ``torch.profiler`` (None
+    when it records no device events)."""
+    import torch
+    from placement_tpu_torch.env import core, pooled
+    states = core.reset(params, gen, BATCH, "cuda")
+    pool = pooled.make_pool(params, gen, pool_size, BATCH)
+    counts = torch.zeros((BATCH,), dtype=torch.int32, device="cuda")
+
+    def step(states, counts):
+        return pooled.step_autoreset_pooled(
+            params, states, policy_fn(gen, params, states), pool, counts,
+            ROUTE_BUDGET)[:2]
+
+    states, counts = step(states, counts)
+    _, n, busy, wall = _profiled(lambda: step(states, counts))
+    return None if n is None else (n, busy, wall)
+
+
+def _pooled_run(label, params, policy_fn, gen, want_mean, want_se):
+    """``pooled.rollout_chunk`` of ``policy_fn`` on ``params`` at ``BATCH``
+    boards from reset: 50-step chunks, the pool ``default_pool_size``,
+    ``ROUTE_BUDGET``; one warm-up chunk, then ``POOLED_CHUNKS`` timed
+    chunks synced by fetching their reward sums. Checks the wraps (0), the
+    episode accounting (5-step episodes) and the mean return against
+    (``want_mean``, ``want_se``) within ``STEPPER_SE`` combined standard
+    errors. Returns (env-steps/s, launches, busy ms, wall ms of a step)."""
+    import numpy as np
+    import torch
+    from placement_tpu_torch.env import core, pooled
+    pool_size = pooled.default_pool_size(params, STEPS)
+    fn = pooled.rollout_chunk(params, policy_fn, STEPS, pool_size,
+                              route_budget=ROUTE_BUDGET)
+    states = core.reset(params, gen, BATCH, "cuda")
+    states, r, d, w = fn(states, gen)
+    _check(int(w) == 0 and int(d) == 10 * BATCH, f"{label}: warm-up chunk")
+    prof = _pooled_step_profile(params, policy_fn, gen, pool_size)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(POOLED_CHUNKS):
+        states, r, d, w = fn(states, gen)
+        out.append((r, d, w))
+    sums = [(float(r), int(d), int(w)) for r, d, w in out]   # the sync
+    dt = time.perf_counter() - t0
+    rate = BATCH * STEPS * POOLED_CHUNKS / dt
+    means = [r / d for r, d, _ in sums]
+    mean = float(np.mean(means))
+    se = float(np.std(means, ddof=1) / np.sqrt(len(means)))
+    both = (se ** 2 + want_se ** 2) ** 0.5
+    wraps = sum(w for *_, w in sums)
+    print(f"[{label}] flagship, {BATCH} boards, {POOLED_CHUNKS} chunks of "
+          f"{STEPS} steps, pool {pool_size}, route budget {ROUTE_BUDGET}: "
+          f"{dt!r} s, {rate!r} env-steps/s; wrap_count {wraps}; "
+          f"{sum(d for _, d, _ in sums)} episodes, mean return {mean!r} (se "
+          f"{se!r}) vs JAX {want_mean!r} (se {want_se!r}): delta "
+          f"{(mean - want_mean) / both!r} combined se; {_card()}",
+          flush=True)
+    if prof is None:
+        print(f"[{label}] launches per step: not measured (the profiler "
+              "recorded no device events)")
+        prof = (None, None, None)
+    else:
+        n, busy, wall = prof
+        print(f"[{label}] one pooled step, {BATCH} boards: {n} kernel "
+              f"launches, device busy {busy!r} ms of {wall!r} ms wall (busy "
+              f"share {busy / wall!r}, idle share {1 - busy / wall!r})",
+              flush=True)
+    _check(wraps == 0, f"{label}: pool wraps")
+    _check(all(d == 10 * BATCH for _, d, _ in sums),
+           f"{label}: episode accounting")
+    _check(bool(torch.isfinite(states.info_wirelength).all()),
+           f"{label}: states")
+    _check(abs(mean - want_mean) <= STEPPER_SE * both, f"{label}: mean "
+                                                       "return")
+    return (rate,) + tuple(prof)
+
+
+def _profiled(fn):
+    """(result, kernel launches, device busy ms, wall ms) of ``fn()`` run
+    once under ``torch.profiler``, the card idle before and after; the
+    launches and busy time are None when the profiler records no device
+    events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return out, None, None, wall
+    return out, len(kernels), sum(e.device_time_total
+                                  for e in kernels) / 1e3, wall
+
+
+def _policy_step_breakdown(params, policy, gen):
+    """Where a ``[policy rollout]`` step's time goes: its parts run one by
+    one, each profiled alone (launches, device busy ms, wall ms with the
+    card synced before and after), on a step where no board finishes
+    (step 2 from reset) and on one where every board does (step 5, the
+    flagship's lockstep episode end: the whole batch routed)."""
+    import torch
+    from placement_tpu_torch.env import core, pooled
+    from placement_tpu_torch.env.types import EnvState
+    states = core.reset(params, gen, BATCH, "cuda")
+    pool = pooled.make_pool(params, gen, 12, BATCH)
+    counts = torch.zeros((BATCH,), dtype=torch.int32, device="cuda")
+    for t in range(5):
+        parts = {}
+        obs, *parts["observe"] = _profiled(
+            lambda: core.observe(params, states))
+        action, *parts["forward + sample"] = _profiled(
+            lambda: policy.act(obs, gen)[0])
+        (stepped, _, done, aux), *parts["step, routing deferred"] = \
+            _profiled(lambda: core.step(params, states, action,
+                                        defer_routing=True))
+        _, *parts["gated routing (host read)"] = _profiled(
+            lambda: pooled.gated_terminal_rewards(
+                params, stepped, done, aux["placed_all_eff"], ROUTE_BUDGET))
+        states, *parts["pool take + where"] = _profiled(
+            lambda: EnvState.where(done, pooled.take(pool, counts), stepped))
+        counts = counts + done.to(torch.int32)
+        if t in (1, 4):
+            print(f"[policy rollout] step {t + 1} parts ({int(done.sum())} "
+                  f"boards finish), launches / device busy ms / wall ms: "
+                  f"{parts!r}", flush=True)
+
+
+def phase_policy_rollout(gen):
+    """[policy rollout], the slice's main path: the flagship policy (the
+    fixture's weights, sampling) acting on ``BATCH`` flagship boards
+    through ``pooled.rollout_chunk`` (PPO's rollout half,
+    ``agent/ppo.py:179-247``); then where a step's time goes."""
+    params, policy, _, data = _policy_fixture("cuda")
+    out = _pooled_run("policy rollout", params, policy.policy_fn(), gen,
+                      float(data["rollout_mean"]),
+                      float(data["rollout_se"]))
+    _policy_step_breakdown(params, policy, gen)
+    return out
+
+
+def phase_pooled(gen):
+    """[pooled]: the random policy through ``pooled.rollout_chunk`` on the
+    flagship (``bench.py:177-198``), its mean return held to JAX
+    ``simulate``'s; then gated == ungated routing on the card."""
+    import torch
+    from placement_tpu_torch.agent import random_policy
+    params, want = _stepper_params("flagship")
+    out = _pooled_run(
+        "pooled", params,
+        lambda g, p, s: random_policy.random_action(g, p, s.action_mask),
+        gen, want["mean"], want["se"])
+    return out + (_gated_vs_ungated(params, gen),)
+
+
+def _gated_vs_ungated(params, gen, steps=12):
+    """The pooled step with and without ``ROUTE_BUDGET`` from the same
+    states, pool and actions on the card; a tenth of the budget's boards
+    play off the board at step 2, so later steps route a few finishers (the compacted branch)
+    besides the lockstep ones (the full batch) and none. States equal but
+    the wirelength; crossings equal; wirelength and reward within one f32
+    ulp. Returns the largest wirelength difference."""
+    import torch
+    from placement_tpu_torch.agent import random_policy
+    from placement_tpu_torch.env import core, pooled
+    from placement_tpu_torch.env.types import STATE_FIELDS
+    s_e = s_g = core.reset(params, gen, BATCH, "cuda")
+    pool = pooled.make_pool(params, gen, 6, BATCH)
+    c_e = c_g = torch.zeros((BATCH,), dtype=torch.int32, device="cuda")
+    worst, branches, bad = 0.0, set(), ROUTE_BUDGET // 10
+    for t in range(steps):
+        a = random_policy.random_action(gen, params, s_e.action_mask)
+        if t == 2:
+            a[:bad] = torch.tensor([0, -5, -5], device="cuda")
+        s_e, c_e, r_e, d_e, i_e = pooled.step_autoreset_pooled(
+            params, s_e, a, pool, c_e)
+        s_g, c_g, r_g, d_g, i_g = pooled.step_autoreset_pooled(
+            params, s_g, a, pool, c_g, ROUTE_BUDGET)
+        n = int(d_e.sum())
+        branches.add("none" if n == 0 else "compacted" if n <= ROUTE_BUDGET
+                     else "full")
+        _check(torch.equal(d_e, d_g) and torch.equal(c_e, c_g)
+               and all(torch.equal(getattr(s_e, f), getattr(s_g, f))
+                       for f in STATE_FIELDS if f != "info_wirelength")
+               and torch.equal(i_e["num_intersections"],
+                               i_g["num_intersections"]),
+               f"gated != ungated at step {t}")
+        for x, y in ((i_e["wirelength"], i_g["wirelength"]), (r_e, r_g)):
+            ulp = torch.finfo(torch.float32).eps * torch.maximum(
+                x.abs(), y.abs())
+            _check(bool(((x - y).abs() <= ulp).all()),
+                   f"gated wirelength or reward off by more than an ulp at "
+                   f"step {t}")
+            worst = max(worst, float((x - y).abs().max()))
+    print(f"[pooled] gated == ungated on the card: {steps} steps x {BATCH} "
+          f"boards (branches {sorted(branches)}): states, dones, counts and "
+          f"crossings equal; largest |wirelength or reward diff| {worst!r}",
+          flush=True)
+    _check(branches == {"none", "compacted", "full"},
+           f"gated branches seen: {branches}")
+    return worst
+
+
+def phase_matrix_pooled():
+    """[matrix] web_max_pooled: the web app's slider maximum on the pooled
+    engine, through ``bench_matrix.measure_pooled`` with the JAX tool's
+    tuning."""
+    import math
+    from placement_tpu_torch.tools import bench_matrix as bm
+    params, anchor = bm._configs()["web_max_pooled"]
+    row = bm.measure_pooled("web_max_pooled", params, anchor, "cuda",
+                            **bm.POOLED_TUNING["web_max_pooled"])
+    print(f"[matrix] web_max_pooled: {row['engine']}, {row['batch']} boards, "
+          f"pool {row['pool_size']}, route budget {row['route_budget']}: "
+          f"{row['steps_per_sec']!r} env-steps/s over {row['calls']} calls "
+          f"of {row['chunk_steps']} steps; wraps {row['wraps']}; "
+          f"{row['episodes']} episodes, mean episode reward "
+          f"{row['mean_episode_reward']!r}; {row['card']}", flush=True)
+    _check(row["wraps"] == 0, "web_max_pooled wrapped its pool")
+    _check(row["episodes"] > 0 and math.isfinite(row["mean_episode_reward"]),
+           "web_max_pooled episodes")
+    return row["steps_per_sec"]
+
+
+def phase_entry():
+    """[entry point] ``graft_entry.entry()``: the flagship forward step on
+    the card."""
+    import torch
+    from placement_tpu_torch import graft_entry
+    fn, args = graft_entry.entry()
+    logits, value = fn(*args)
+    print(f"[entry point] graft_entry.entry(): logits "
+          f"{tuple(logits.shape)}, value {tuple(value.shape)} on "
+          f"{logits.device}", flush=True)
+    legal = args[1]["action_mask"].reshape(logits.shape[0], -1) > 0
+    _check(logits.device.type == "cuda"
+           and tuple(logits.shape) == (16, 400)
+           and tuple(value.shape) == (16,)
+           and bool(torch.isfinite(value).all())
+           and bool(torch.isfinite(logits[legal]).all()),
+           "entry outputs")
+
+
 def main():
     device_name = phase_device()
     import torch
@@ -1026,6 +1399,13 @@ def main():
         n, reset_err[kernel] = phase_reset_kernel(name, block, gen)
         launches[kernel] += n
     launches["varpin"] += phase_dryrun()
+    # the policy path: models, Policy.act and the pooled engine (no kernel
+    # of its own; counts of the fused kernels stay as they are)
+    forward_ms = phase_policy(gen)
+    policy_out = phase_policy_rollout(gen)
+    pooled_out = phase_pooled(gen)
+    web_max_rate = phase_matrix_pooled()
+    phase_entry()
     # no one PyTorch call computes a chunk: library_ms is null
     entries = []
     for k, (row, *_, replaces) in KERNELS.items():
@@ -1074,6 +1454,12 @@ def main():
     print(f"[stepper] flagship {stepper_rate!r} env-steps/s; others "
           f"{family_rates!r}; card == cpu worst reward/info diff "
           f"{card_cpu_err!r}")
+    print(f"[policy path] forward {forward_ms!r} ms at {BATCH} boards; "
+          f"policy rollout {policy_out[0]!r} env-steps/s, {policy_out[1]} "
+          f"launches a step; pooled random {pooled_out[0]!r} env-steps/s, "
+          f"{pooled_out[1]} launches a step, gated vs ungated largest diff "
+          f"{pooled_out[4]!r}; eager simulate {stepper_rate!r}; "
+          f"web_max_pooled {web_max_rate!r} env-steps/s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

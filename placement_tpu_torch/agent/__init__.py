@@ -1,1 +1,1 @@
-"""Agents of the port: the random-policy baseline."""
+"""Agents of the port: the policy (acting) and the random-policy baseline."""

@@ -1,3 +1,4 @@
-"""Environment parameters (the batched stepper is not ported yet)."""
+"""The placement environments: parameters, the batched stepper, the pooled
+auto-reset engine and the gym-style adapter."""
 
 from placement_tpu_torch.env.types import EnvParams, Variant  # noqa: F401

@@ -2,24 +2,50 @@
 
     python -m placement_tpu_torch.graft_entry [n_ranks]
 
-``dryrun_multigpu(n)`` is the fused half of ``dryrun_multichip`` (:104-121):
-the fused rollout sharded over ``n`` ranks on that function's reduced
-config, from boards fresh from the stepper's reset. The learner half
-(``shard_learner`` and the full PPO train step) waits for the port of the
-models and the learner (ROADMAP.md queue 1 items 5-6); ``entry`` (a model's
-forward step) is item 7.
+``entry()`` returns the flagship model's forward step (``rectangle_pin`` on
+``configs/rectangle_pin_model.json``) and its example arguments
+(:54-68). ``dryrun_multigpu(n)`` is the fused half of ``dryrun_multichip``
+(:104-121): the fused rollout sharded over ``n`` ranks on that function's
+reduced config, from boards fresh from the stepper's reset. The learner
+half (``shard_learner`` and the full PPO train step) waits for the port of
+the learner (ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations
 
 import math
 import sys
-from typing import Any, List
+from typing import Any, Callable, Dict, List, Tuple
 
+import torch
+
+from placement_tpu_torch.agent.policy import Policy
 from placement_tpu_torch.env import core
 from placement_tpu_torch.env.types import EnvParams
 from placement_tpu_torch.parallel import mesh
-from placement_tpu_torch.utils.config import load_env_params
+from placement_tpu_torch.utils.config import load_env_params, load_experiment
+
+
+def entry(device: str = "cuda") -> Tuple[Callable, Tuple[Any, ...]]:
+    """-> (fn, example_args): ``fn(model, obs) -> (logits, value)``, the
+    flagship model (eval mode, weights drawn from seed 1 with Flax's
+    initializers) on the observations of 16 reset boards (generator seed
+    0), on ``device``: the card unless the CPU is asked for (raises
+    without a card)."""
+    device = core.check_device(device, "entry")
+    env_params, model_cfg, _ = load_experiment("rectangle_pin")
+    policy = Policy(env_params, model_cfg, device, seed=1)
+    states = core.reset(env_params, torch.Generator(device).manual_seed(0),
+                        16, device)
+    obs = core.observe(env_params, states)
+
+    def fn(model: torch.nn.Module, obs: Dict[str, torch.Tensor]
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        with torch.no_grad():
+            out = model(obs)
+        return out["logits"], out["value"]
+
+    return fn, (policy.model, obs)
 
 
 #: ``dryrun_multichip``'s cut of the flagship config (:82-87): a 6x6 grid,
@@ -60,6 +86,8 @@ def dryrun_multigpu(n_ranks: int, device: str = "cuda") -> List[Any]:
 
 
 if __name__ == "__main__":
+    fn, args = entry()
+    print("entry ok:", [tuple(o.shape) for o in fn(*args)])
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     out = dryrun_multigpu(n)
     print(f"dryrun_multigpu({n}) ok: reward sum {out[0]['totals'][0][0]!r}, "

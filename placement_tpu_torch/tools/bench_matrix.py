@@ -1,23 +1,23 @@
-"""Per-configuration throughput of the fused rollout (port of the fused half
-of ``tools/bench_matrix.py``).
+"""Per-configuration throughput of the rollout engines (port of
+``tools/bench_matrix.py``).
 
     python -m placement_tpu_torch.tools.bench_matrix            # fused rows
-    python -m placement_tpu_torch.tools.bench_matrix --configs square rect
+    python -m placement_tpu_torch.tools.bench_matrix --configs web_max_pooled
     python -m placement_tpu_torch.tools.bench_matrix --out rows.json
 
-Measures env-steps/s of the fused kernel for every environment variant and
-reward type the repo ships, with the JAX tool's method (the batched
-equivalent of the reference's random-policy loop): all-done zero boards
+Measures env-steps/s for every environment variant and reward type the repo
+ships, with the JAX tool's method (the batched equivalent of the
+reference's random-policy loop): all-done zero boards
 (``bench.py:125-133``), one warm-up chunk, then 50-step chunks chained
 output to input, the number of timed chunks sized from one timed chunk,
 synced by fetching an accumulated reward scalar so that asynchronous launches
-cannot hide execution. Each row names the device it ran on and, on a GPU,
-the card's name and power limit; a row that fails raises. It prints one JSON
-line of rows and writes a file only when ``--out`` is given.
-
-The JAX tool's ``web_max_pooled`` row runs the pooled pure-JAX engine, which
-the port does not have yet (ROADMAP.md queue 1 item 3): that row raises
-``NotImplementedError``.
+cannot hide execution. A configuration inside the fused kernel's envelope
+runs on the kernel; one outside it, the web app's slider maximum
+(``web_max_pooled``), runs on the pooled engine (``env/pooled.py``) with
+the JAX tool's tuning and reports the pool wraps, warning when a row
+wrapped. Each row names the device it ran on and, on a GPU, the card's name
+and power limit; a row that fails raises. It prints one JSON line of rows
+and writes a file only when ``--out`` is given.
 """
 
 from __future__ import annotations
@@ -25,12 +25,15 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import sys
 import time
 from typing import Dict, Tuple
 
 import torch
 
-from placement_tpu_torch.env.types import EnvParams
+from placement_tpu_torch.agent.random_policy import random_action
+from placement_tpu_torch.env import core, pooled
+from placement_tpu_torch.env.types import STATE_FIELDS, EnvParams, EnvState
 from placement_tpu_torch.ops import fused_rollout
 from placement_tpu_torch.utils.config import load_env_params
 
@@ -53,6 +56,15 @@ FUSED_TUNING = {
     "rect": dict(block=512),
     "pin_centroid": dict(block=256),
     "spatial": dict(block=256),
+}
+
+
+#: the pooled engine's tuning per row (the JAX tool's POOLED_TUNING):
+#: episodes of ~40 placements fill a 2-deep pool in 50 steps with headroom,
+#: and the routing is gated to the boards that finish
+POOLED_TUNING = {
+    "web_max_pooled": dict(inner=50, pool_size=2, slice_size=2,
+                           route_budget=64, batch=1024),
 }
 
 
@@ -140,19 +152,100 @@ def bench_fused(env_params: EnvParams, batch: int, block: int,
             "leaves": leaves}
 
 
+def dummy_states(params: EnvParams, batch: int, device) -> EnvState:
+    """All-done zero boards (JAX ``_dummy_states``): the first step ends
+    every episode, and each board takes a fresh instance."""
+    shapes = core.reset(params, torch.Generator(device).manual_seed(0), 1,
+                        device)
+    states = EnvState(**{f: torch.zeros((batch,) + getattr(shapes, f)
+                                        .shape[1:], dtype=getattr(shapes, f)
+                                        .dtype, device=device)
+                         for f in STATE_FIELDS})
+    return states.replace(done=torch.ones_like(states.done))
+
+
+def bench_pooled(env_params: EnvParams, batch: int, device: torch.device,
+                 inner: int, pool_size: int, slice_size: int,
+                 route_budget: int) -> dict:
+    """Chained pooled chunks of the random policy from all-done zero
+    boards (JAX ``_bench_pooled``). Returns the rate, the chunk count, the
+    pool wraps of every chunk and the episode accounting of the timed
+    ones."""
+    chunk = pooled.rollout_chunk(
+        env_params, lambda g, p, s: random_action(g, p, s.action_mask),
+        inner, pool_size, slice_size, route_budget, device)
+    gen = torch.Generator(device).manual_seed(7)
+    wraps = []
+
+    def call(states):
+        states, r, d, wrapped = chunk(states, gen)
+        wraps.append(wrapped)
+        return states, r, d
+
+    states, r, _ = call(dummy_states(env_params, batch, device))
+    float(r)                                     # warm-up: every board fresh
+    t0 = time.perf_counter()
+    states, r, _ = call(states)
+    float(r)
+    per_call = time.perf_counter() - t0
+    n_calls = max(2, min(MAX_CALLS, int(BUDGET_S * 0.3 / max(per_call, 1e-4))))
+    racc = torch.zeros((), dtype=torch.float32, device=device)
+    dacc = torch.zeros((), dtype=torch.int64, device=device)
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        states, r, d = call(states)
+        racc, dacc = racc + r, dacc + d
+    reward_sum = float(racc)    # the sync: needs every chunk's output
+    seconds = time.perf_counter() - t0
+    return {"rate": batch * inner * n_calls / seconds, "seconds": seconds,
+            "calls": n_calls + 2, "wraps": int(sum(int(w) for w in wraps)),
+            "episodes": int(dacc), "reward_sum": reward_sum,
+            "states": states}
+
+
+def measure_pooled(name: str, env_params: EnvParams, anchor: str,
+                   device="cuda", **tuning) -> dict:
+    """One pooled row of the matrix (``POOLED_TUNING``'s keys as
+    keywords)."""
+    device = core.check_device(device, "bench_matrix")
+    batch = tuning.pop("batch")
+    t0 = time.monotonic()
+    run = bench_pooled(env_params, batch, device, **tuning)
+    if run["wraps"]:
+        # pool reuse biases the sample stream (a board replays an instance)
+        print(f"[matrix] {name}: WARNING: {run['wraps']} pool wrap(s) - "
+              "enlarge pool_size", file=sys.stderr, flush=True)
+    return {
+        "engine": "pooled_torch",
+        "steps_per_sec": run["rate"],
+        "batch": batch,
+        "variant": int(env_params.variant),
+        "reward_type": (env_params.reward_type if env_params.has_pins
+                        else None),
+        "grid": [env_params.height, env_params.width],
+        "chunk_steps": tuning["inner"],
+        "pool_size": tuning["pool_size"],
+        "route_budget": tuning["route_budget"],
+        "calls": run["calls"],
+        "wraps": run["wraps"],
+        "timed_seconds": run["seconds"],
+        "episodes": run["episodes"],
+        "reward_sum": run["reward_sum"],
+        "mean_episode_reward": run["reward_sum"] / max(run["episodes"], 1),
+        "measure_seconds": time.monotonic() - t0,
+        "reference_anchor": anchor,
+        **device_info(device),
+    }
+
+
 def measure(name: str, env_params: EnvParams, anchor: str, batch: int,
             device="cuda", inner: int = INNER, block: int = 128
             ) -> Tuple[dict, Dict[str, torch.Tensor]]:
-    """One row of the matrix and the final leaves of its run."""
+    """One fused row of the matrix and the final leaves of its run."""
     if not fused_rollout.supports(env_params):
-        raise NotImplementedError(
-            f"{name}: outside the fused kernel's envelope; it runs on the "
-            "pooled engine, which is not ported yet (ROADMAP.md queue 1 "
-            "item 3)")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the matrix measures the fused "
-                           "kernel on a GPU")
+        raise ValueError(f"{name}: outside the fused kernel's envelope; it "
+                         "runs on the pooled engine (measure_pooled)")
+    device = core.check_device(device, "bench_matrix")
     t0 = time.monotonic()
     run = bench_fused(env_params, batch, min(block, batch), device, inner)
     engine = "fused_cuda" if device.type == "cuda" else "fused_plain"
@@ -197,6 +290,10 @@ def main(argv=None) -> dict:
             raise SystemExit(f"unknown config {name!r}; "
                              f"one of {sorted(table)}")
         env_params, anchor = table[name]
+        if name in POOLED_TUNING:
+            rows[name] = measure_pooled(name, env_params, anchor,
+                                        **POOLED_TUNING[name])
+            continue
         block = FUSED_TUNING.get(name, {}).get("block", 128)
         rows[name], _ = measure(name, env_params, anchor, args.batch,
                                 inner=args.inner, block=block)

@@ -1,8 +1,10 @@
-"""configs/*.json -> EnvParams (port of ``placement_tpu/utils/config.py``).
+"""configs/*.json -> (EnvParams, ModelConfig) (port of
+``placement_tpu/utils/config.py``).
 
 Reads the same JSON files as the JAX package (the reference's
-``agent/config/*.json`` schema). Only the ``env_config`` half is ported:
-the ``ModelConfig`` half waits for the port of the model zoo.
+``agent/config/*.json`` schema): an ``env_config`` block maps onto
+``EnvParams`` and a ``model.custom_model_config`` block onto
+``ModelConfig``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 from placement_tpu_torch.env.types import EnvParams, Variant
+from placement_tpu_torch.models.zoo import ModelConfig
 
 _VARIANTS = {
     "square": Variant.SQUARE,
@@ -46,6 +49,7 @@ CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "configs")
 
 _ENV_FIELDS = {f.name for f in dataclasses.fields(EnvParams)}
+_MODEL_FIELDS = {f.name for f in dataclasses.fields(ModelConfig)}
 
 
 def env_params_from_config(env_config: Dict[str, Any]) -> EnvParams:
@@ -57,12 +61,51 @@ def env_params_from_config(env_config: Dict[str, Any]) -> EnvParams:
     return EnvParams(variant=variant, **kw).validate()
 
 
+def model_config_from_config(model_type: str, env_params: EnvParams,
+                             custom: Dict[str, Any]) -> ModelConfig:
+    """custom_model_config dict -> ModelConfig; the sizes the env fixes
+    come from ``env_params`` (``agent/policy.py::model_config_for``)."""
+    from placement_tpu_torch.agent.policy import model_config_for
+    kw = {k: v for k, v in custom.items() if k in _MODEL_FIELDS
+          and k not in ("model_type", "height", "width",
+                        "max_num_components", "max_num_nets",
+                        "max_num_pins_per_component",
+                        "component_feature_vector_width",
+                        "pin_feature_vector_width")}
+    return model_config_for(env_params, model_type, **kw)
+
+
+def _raw(model_type: str, config_dir: Optional[str]) -> Dict[str, Any]:
+    _, basename = MODEL_TYPES[model_type]
+    with open(os.path.join(config_dir or CONFIG_DIR, basename)) as f:
+        return json.load(f)
+
+
 def load_env_params(model_type: str,
                     config_dir: Optional[str] = None) -> EnvParams:
-    """model type -> EnvParams from ``configs/`` (the env half of the JAX
-    package's ``load_experiment``)."""
-    _, basename = MODEL_TYPES[model_type]
-    path = os.path.join(config_dir or CONFIG_DIR, basename)
-    with open(path) as f:
-        raw = json.load(f)
-    return env_params_from_config(raw["env_config"])
+    """model type -> EnvParams from ``configs/`` (the env half of
+    ``load_experiment``)."""
+    return env_params_from_config(_raw(model_type, config_dir)["env_config"])
+
+
+def load_experiment(model_type: str,
+                    config_dir: Optional[str] = None
+                    ) -> Tuple[EnvParams, ModelConfig, Dict[str, Any]]:
+    """model type -> (EnvParams, ModelConfig, raw json) from ``configs/``."""
+    raw = _raw(model_type, config_dir)
+    env_params = env_params_from_config(raw["env_config"])
+    model_cfg = model_config_from_config(
+        model_type, env_params, raw["model"]["custom_model_config"])
+    return env_params, model_cfg, raw
+
+
+def save_config(path: str, env_params: EnvParams,
+                model_cfg: ModelConfig) -> None:
+    """Write the run config as JSON, in the JAX package's layout."""
+    payload = {
+        "env_config": {**dataclasses.asdict(env_params),
+                       "variant": int(env_params.variant)},
+        "model_config": dataclasses.asdict(model_cfg),
+    }
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2)

@@ -23,16 +23,17 @@ JAX_TOOL = (pathlib.Path(__file__).resolve().parents[1] / "tools"
 
 
 def _jax_matrix_tool():
-    """``_configs`` and ``FUSED_TUNING`` of ``tools/bench_matrix.py``, taken
-    from its source alone: importing the tool would run its module-level
-    set-up (``sys.path``, JAX's persistent compilation cache)."""
+    """``_configs``, ``FUSED_TUNING`` and ``POOLED_TUNING`` of
+    ``tools/bench_matrix.py``, taken from its source alone: importing the
+    tool would run its module-level set-up (``sys.path``, JAX's persistent
+    compilation cache)."""
     wanted = [node for node in ast.parse(JAX_TOOL.read_text()).body
               if getattr(node, "name", None) == "_configs"
               or [getattr(t, "id", None) for t in getattr(node, "targets", ())]
-              == ["FUSED_TUNING"]]
+              in (["FUSED_TUNING"], ["POOLED_TUNING"])]
     ns = {}
     exec(compile(ast.Module(wanted, []), str(JAX_TOOL), "exec"), ns)
-    return ns["_configs"], ns["FUSED_TUNING"]
+    return ns["_configs"], ns["FUSED_TUNING"], ns["POOLED_TUNING"]
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +42,7 @@ def configs():
 
 
 def test_configs_match_the_jax_tool(configs):
-    jax_configs, jax_tuning = _jax_matrix_tool()
+    jax_configs, jax_tuning, jax_pooled = _jax_matrix_tool()
     want = jax_configs()
     assert list(configs) == list(want)
     for name, (params, anchor) in configs.items():
@@ -57,6 +58,7 @@ def test_configs_match_the_jax_tool(configs):
     # the JAX tuning's blocks are the logical PRNG blocks
     assert bench_matrix.FUSED_TUNING == {
         k: {"block": v["block"]} for k, v in jax_tuning.items()}
+    assert bench_matrix.POOLED_TUNING == jax_pooled
 
 
 @pytest.mark.parametrize("name", bench_matrix.FUSED_ROWS)
@@ -84,12 +86,36 @@ def test_fused_row_runs_on_cpu_tensors(name, configs, monkeypatch):
     json.dumps(row)
 
 
-def test_web_max_row_raises_naming_the_pooled_engine(configs):
+def test_web_max_row_raises_naming_the_pooled_engine(configs, monkeypatch):
+    """The fused measure refuses the row outside the kernel's envelope,
+    naming the pooled engine; ``main`` runs it there (on the card: here it
+    raises without one)."""
     params, anchor = configs["web_max_pooled"]
-    with pytest.raises(NotImplementedError, match="pooled engine"):
+    with pytest.raises(ValueError, match="pooled engine"):
         bench_matrix.measure("web_max_pooled", params, anchor, 16, "cpu")
-    with pytest.raises(NotImplementedError, match="pooled engine"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_matrix.main(["--configs", "web_max_pooled"])
+
+
+def test_web_max_row_runs_on_the_pooled_engine(configs, monkeypatch):
+    """The pooled row at a small size on CPU tensors: the JAX tool's tuning
+    but 4 boards and 5-step chunks; rate, wraps and the episode
+    accounting."""
+    monkeypatch.setattr(bench_matrix, "MAX_CALLS", 2)
+    params, anchor = configs["web_max_pooled"]
+    tuning = dict(bench_matrix.POOLED_TUNING["web_max_pooled"], batch=4,
+                  inner=5)
+    row = bench_matrix.measure_pooled("web_max_pooled", params, anchor,
+                                      "cpu", **tuning)
+    assert row["engine"] == "pooled_torch" and row["device"] == "cpu"
+    assert row["calls"] == 4 and row["batch"] == 4
+    assert row["wraps"] == 0 and row["pool_size"] == 2
+    assert row["steps_per_sec"] > 0 and math.isfinite(row["reward_sum"])
+    # 40 components on 30x30: no episode ends in 10 steps after the
+    # warm-up chunk's fresh boards
+    assert row["episodes"] == 0
+    json.dumps(row)
 
 
 def test_main_prints_rows_and_writes_only_when_asked(tmp_path, capsys,

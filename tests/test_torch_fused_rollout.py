@@ -421,7 +421,11 @@ PORT_MODULES = (
     "placement_tpu_torch.env.generator", "placement_tpu_torch.env.routing",
     "placement_tpu_torch.env.wrappers", "placement_tpu_torch.env.testing",
     "placement_tpu_torch.ops.sat", "placement_tpu_torch.agent.random_policy",
-    "placement_tpu_torch.graft_entry",
+    "placement_tpu_torch.env.pooled", "placement_tpu_torch.env.gym_api",
+    "placement_tpu_torch.models.blocks", "placement_tpu_torch.models.zoo",
+    "placement_tpu_torch.models.distributions",
+    "placement_tpu_torch.models.convert", "placement_tpu_torch.agent.policy",
+    "placement_tpu_torch.viz.rollout", "placement_tpu_torch.graft_entry",
     "placement_tpu_torch.ops._build", "placement_tpu_torch.ops.fused_rollout",
     "placement_tpu_torch.ops.fused_routing",
     "placement_tpu_torch.parallel.mesh", "placement_tpu_torch.tools.bench_matrix",

@@ -442,3 +442,123 @@ def test_cuda_simulate_returns_finite_episodes(cuda, name):
                                      device=cuda)
     assert returns.device.type == "cuda" and returns.shape == (512,)
     assert bool(torch.isfinite(returns).all())
+
+
+# ---------------------------------------------------------------------------
+# The policy path: Policy.act and the pooled engine on the card
+# ---------------------------------------------------------------------------
+
+def _flagship_policy(device):
+    """The flagship policy with the fixture's Flax weights on ``device``,
+    and the fixture's observations and JAX outputs."""
+    import numpy as np
+    from placement_tpu_torch.agent.policy import Policy
+    from placement_tpu_torch.models import convert
+    from placement_tpu_torch.utils.config import load_experiment
+    data = dict(np.load(FIXTURES / "torch_policy_flagship.npz"))
+    variables = convert.unflatten({k[4:]: v for k, v in data.items()
+                                   if k.startswith("var/")})
+    params, cfg, _ = load_experiment("rectangle_pin")
+    policy = Policy(params, cfg, device).load_flax(variables)
+    obs = {k[4:]: torch.as_tensor(v, device=device)
+           for k, v in data.items() if k.startswith("obs/")}
+    return params, policy, obs, data
+
+
+@pytest.mark.gpu
+def test_cuda_policy_matches_cpu_and_jax(cuda):
+    """The carried flagship policy on the card, with cuDNN's TF32 off: its
+    logits and value within 1e-4 relative of the CPU's and of JAX's
+    recorded ones; greedy actions equal where JAX's top two logits are
+    further apart than that."""
+    import numpy as np
+    params, card, obs, data = _flagship_policy(cuda)
+    _, cpu, cpu_obs, _ = _flagship_policy("cpu")
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = card.act(obs, torch.Generator(cuda), deterministic=True)
+    want = cpu.act(cpu_obs, torch.Generator(), deterministic=True)
+    logits = got[3].cpu()
+    torch.testing.assert_close(logits, want[3], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(logits.numpy(), data["logits"], rtol=1e-4,
+                               atol=1e-4)
+    top2 = np.sort(data["logits"], axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-4 * np.abs(top2[:, 1]) + 1e-4
+    assert clear.sum() >= len(clear) // 2
+    np.testing.assert_array_equal(got[0].cpu().numpy()[clear],
+                                  data["greedy"][clear])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route_budget", [None, 64])
+def test_cuda_pooled_step_matches_cpu(cuda, route_budget):
+    """From the same carried pool, states and actions, the pooled step on
+    the card gives the CPU's results: integer fields, masks, counts and
+    done equal; rewards and info within 1e-5."""
+    from placement_tpu_torch.agent.random_policy import random_action
+    from placement_tpu_torch.env import pooled
+    params = load_env_params("rectangle_pin")
+    gen = torch.Generator(cuda).manual_seed(6)
+    states = core.reset(params, gen, 256, cuda)
+    pool = pooled.make_pool(params, gen, 4, 256)
+    counts = torch.zeros((256,), dtype=torch.int32, device=cuda)
+    c_states, c_pool, c_counts = states.to("cpu"), pool.to("cpu"), \
+        counts.cpu()
+    for t in range(12):
+        action = random_action(gen, params, states.action_mask)
+        if t == 2:
+            action[0] = torch.tensor([0, -5, -5], device=cuda)
+        states, counts, r, d, info = pooled.step_autoreset_pooled(
+            params, states, action, pool, counts, route_budget)
+        c_states, c_counts, c_r, c_d, c_info = pooled.step_autoreset_pooled(
+            params, c_states, action.cpu(), c_pool, c_counts, route_budget)
+        for f in STATE_FIELDS:
+            a, b = getattr(states, f).cpu(), getattr(c_states, f)
+            if a.dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+            else:
+                assert torch.equal(a, b), f
+        assert torch.equal(counts.cpu(), c_counts)
+        assert torch.equal(d.cpu(), c_d)
+        torch.testing.assert_close(r.cpu(), c_r, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_pooled_chunk_without_budget_never_waits(cuda):
+    """A pooled chunk of the random policy without ``route_budget``
+    enqueues its work without a host sync (the budget's finisher count is
+    the one sync a step, and only when asked for)."""
+    from placement_tpu_torch.env import pooled
+    params = load_env_params("rectangle_pin")
+    gen = torch.Generator(cuda).manual_seed(7)
+    states = core.reset(params, gen, 512, cuda)
+    fn = pooled.rollout_chunk(
+        params, lambda g, p, s: random_policy.random_action(
+            g, p, s.action_mask), 10, 4, device=cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states, r, d, wrapped = fn(states, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(d) == 512 * 2 and int(wrapped) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_policy_rollout_and_entry(cuda):
+    """The carried policy acting through the pooled engine on the card, and
+    the flagship forward step of ``graft_entry.entry``."""
+    from placement_tpu_torch import graft_entry
+    from placement_tpu_torch.env import pooled
+    params, policy, _, data = _flagship_policy(cuda)
+    gen = torch.Generator(cuda).manual_seed(8)
+    states = core.reset(params, gen, 1024, cuda)
+    fn = pooled.rollout_chunk(params, policy.policy_fn(), 50,
+                              pooled.default_pool_size(params, 50),
+                              route_budget=256, device=cuda)
+    states, r, d, wrapped = fn(states, gen)
+    assert int(d) == 1024 * 10 and int(wrapped) == 0
+    assert abs(float(r) / int(d) - float(data["rollout_mean"])) < 0.1
+    f, args = graft_entry.entry()
+    logits, value = f(*args)
+    assert logits.device.type == "cuda" and logits.shape == (16, 400)
+    assert bool(torch.isfinite(value).all())
