@@ -26,7 +26,11 @@ entry points a user calls:
     (``Policy.load_flax``) acting on 4096 boards through the pooled
     auto-reset engine (``pooled.rollout_chunk``), the random policy through
     the same engine, the matrix's ``web_max_pooled`` row on it, and
-    ``graft_entry.entry``.
+    ``graft_entry.entry``;
+  * the learner: ``Trainer("rectangle_pin")`` training the flagship from
+    its carried Flax weights with RLlib's PPO defaults (``Policy.evaluate``,
+    ``agent/ppo.py``), checkpointed, restored and continued, its rollouts
+    exported; and PPO learning the tiny square env.
 
 Phases (any failure raises and the exit code is not 0):
   1. device  — requires CUDA; prints the card and its power limit
@@ -91,6 +95,24 @@ Phases (any failure raises and the exit code is not 0):
  16. [matrix] web_max_pooled through ``bench_matrix.measure_pooled``: rate,
      wraps (0), mean episode reward
  17. [entry point] ``graft_entry.entry()``: shapes, finite outputs
+ 18. [learner]: the carried flagship on a minibatch of 128 transitions of a
+     CPU rollout: loss, aux and every gradient on the card and on the CPU
+     (TF32 off) within 1e-4; one ``update`` (2 epochs, 16 Adam steps) fed
+     the same window and permutations: parameters and batch statistics
+     within 1e-4 of the CPU's (the biases that feed a batch norm, whose
+     gradient is rounding noise, within 2 * lr a step)
+ 19. [train], this slice's main path: ``Trainer("rectangle_pin")``, default
+     ``PPOConfig`` (4096 transitions, 960 Adam steps an iteration), carried
+     weights, 3 iterations into a temporary results root: metrics finite,
+     parameters moved, 0 pool wraps, progress.csv with JAX's columns,
+     params.json, 3 checkpoints; iteration 1's mean return within 4
+     combined standard errors of JAX's pooled rollout (the fixture); a
+     restore and 1 more iteration (number 4); ``generate_rollouts``; seconds
+     an iteration split into rollout and update, env-steps/s, Adam
+     steps/s, one minibatch step's launches and busy share, peak memory
+ 20. [train learns]: tests/agent/test_ppo.py:174-193 on the card (6x6
+     square, 40 iterations): the last 5 beat the first 5 by more than 1.0
+     and exceed 7.5
 
 Every timed window follows at least ``WARM_S`` seconds of chained launches:
 a card fresh from idle runs its first ~50 ms slower while its clock ramps.
@@ -1322,6 +1344,326 @@ def phase_entry():
            "entry outputs")
 
 
+
+# ---------------------------------------------------------------------------
+# The learner: Policy.evaluate, PPO, the Trainer
+# ---------------------------------------------------------------------------
+
+#: loss, gradients and one update, card against CPU, with TF32 off
+#: (``phase_device``): relative to each gradient tensor's largest entry,
+#: to max(1, |CPU|) for the loss and its aux (the KL and the surrogate's
+#: mean sit near 0 by cancellation), absolute for the parameters
+LEARNER_RTOL = 1e-4
+#: the gradient of a bias that feeds a batch norm is 0 in exact arithmetic
+#: (``convert.norm_fed_biases``): noise on both devices, held below this
+NORM_FED_GRAD = 1e-5
+#: the ``[train]`` main path: iterations before and after the restore
+TRAIN_ITERS, TRAIN_MORE = 3, 1
+#: progress.csv's columns as the JAX ``Trainer`` writes them (held to a JAX
+#: run by tests/test_torch_trainer.py)
+JAX_PROGRESS_COLUMNS = [
+    "training_iteration", "timesteps_total", "time_total_s", "entropy",
+    "episode_len_mean", "episode_reward_mean", "episodes_this_iter", "kl",
+    "kl_coeff", "custom_metrics/normalized_wirelengths_mean",
+    "custom_metrics/num_intersections_mean", "policy_loss", "pool_wraps",
+    "vf_loss"]
+#: ``[train learns]``: tests/agent/test_ppo.py:174-193 on the card
+LEARNS_ITERS = 40
+
+
+def _fixture_variables():
+    import numpy as np
+    from placement_tpu_torch.models import convert
+    data = dict(np.load(POLICY_FIXTURE))
+    return convert.unflatten({k[4:]: v for k, v in data.items()
+                              if k.startswith("var/")})
+
+
+def _worst_rel(got, want):
+    """max |got - want| / max |want| over a tensor."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def phase_learner(device="cuda"):
+    """[learner]: the carried flagship on one minibatch of 128 transitions
+    of a CPU rollout: the loss, its aux and every gradient on ``device`` and
+    on the CPU within ``LEARNER_RTOL`` of the tensor's scale (the norm-fed
+    biases' noise below ``NORM_FED_GRAD``); then one ``update``
+    (``num_sgd_iter`` 2 over 1024 transitions: 16 Adam steps) fed the same
+    window and permutations: parameters and batch statistics within
+    ``LEARNER_RTOL`` of the CPU's (the norm-fed biases within 2 * lr a
+    step), ``kl_coeff`` and the metrics within ``LEARNER_RTOL``."""
+    import torch
+    from placement_tpu_torch.agent.ppo import PPOConfig, PPOLearner
+    from placement_tpu_torch.models import convert
+    variables = _fixture_variables()
+    params, card, _, _ = _policy_fixture(device)
+    _, cpu, _, _ = _policy_fixture("cpu")
+    cfg = PPOConfig(num_envs=128, unroll_length=8, num_sgd_iter=2)
+    c_learner, g_learner = (PPOLearner(params, cpu, cfg),
+                            PPOLearner(params, card, cfg))
+    c_state = c_learner.init(torch.Generator().manual_seed(0), variables)
+    g_state = g_learner.init(torch.Generator(device).manual_seed(0),
+                             variables)
+    c_state, traj, last_value, _ = c_learner.rollout(c_state)
+    batch = c_learner.flat_batch(traj, last_value)
+    sel = torch.arange(128)
+
+    def take(to):
+        return {k: ({o: x[sel].to(to) for o, x in v.items()} if k == "obs"
+                    else v[sel].to(to)) for k, v in batch.items()}
+
+    out = {}
+    for name, learner, state, gen in (
+            ("cpu", c_learner, c_state, torch.Generator()),
+            ("card", g_learner, g_state, torch.Generator(device))):
+        loss, aux = learner._loss(take(learner.device), state.kl_coeff, gen)
+        loss.backward()
+        out[name] = ({k: v.detach() for k, v in
+                      {"loss": loss, **aux}.items()},
+                     convert.flax_grads(learner.policy.model))
+        learner.policy.load_flax(variables)     # undo the train forward
+    (c_aux, c_grads), (g_aux, g_grads) = out["cpu"], out["card"]
+    noise = convert.norm_fed_biases(c_grads)
+    aux_err = {k: _rel_err(g_aux[k].cpu(), c_aux[k]) for k in c_aux}
+    loss_err = max(aux_err.values())
+    grad_err = max(_worst_rel(g_grads[k], c_grads[k])
+                   for k in c_grads if k not in noise)
+    noise_max = max(max(abs(g_grads[k]).max(), abs(c_grads[k]).max())
+                    for k in noise)
+    print(f"[learner] flagship, Flax weights carried, minibatch of 128 "
+          f"from a CPU rollout, TF32 off: loss and aux on the CPU "
+          f"{ {k: float(v) for k, v in c_aux.items()}!r}; card vs CPU: "
+          f"|diff| / max(1, |CPU|) {aux_err!r}; worst rel err of the "
+          f"gradients {grad_err!r} over {len(c_grads) - len(noise)} tensors "
+          f"(tolerance {LEARNER_RTOL}); the {len(noise)} norm-fed biases' "
+          f"gradients at most {float(noise_max)!r} (bound {NORM_FED_GRAD})",
+          flush=True)
+    _check(loss_err <= LEARNER_RTOL and grad_err <= LEARNER_RTOL,
+           "learner loss or gradients: card != CPU")
+    _check(noise and noise_max <= NORM_FED_GRAD, "norm-fed bias gradients")
+
+    perm_gen = torch.Generator().manual_seed(1)
+    perms = [torch.randperm(cfg.train_batch, generator=perm_gen)
+             for _ in range(cfg.num_sgd_iter)]
+    c_state, want = c_learner.update(c_state, traj, last_value, perms)
+    g_state, got = g_learner.update(g_state, traj.to(device),
+                                    last_value.to(device), perms)
+    metric_err = max(_rel_err(got[k].cpu(), want[k]) for k in want)
+    w_sd = convert.to_flax(cpu.model.state_dict())
+    g_sd = convert.to_flax(card.model.state_dict())
+    steps = cfg.num_sgd_iter * cfg.train_batch // cfg.minibatch_size
+    param_err = max(float(abs(g_sd[k] - w_sd[k]).max())
+                    for k in w_sd if k not in noise)
+    noise_err = max(float(abs(g_sd[k] - w_sd[k]).max()) for k in noise)
+    moved = max(float(abs(w_sd[k] - convert.flatten(variables)[k]).max())
+                for k in w_sd)
+    print(f"[learner] one update, {steps} Adam steps, card vs CPU: metrics "
+          f"|diff| / max(1, |CPU|) {metric_err!r}; parameters and statistics worst "
+          f"abs err {param_err!r} (tolerance {LEARNER_RTOL}; they moved by "
+          f"up to {moved!r}); norm-fed biases {noise_err!r} (bound "
+          f"{2 * cfg.lr * steps!r}); kl_coeff {float(got['kl_coeff'])!r}",
+          flush=True)
+    _check(metric_err <= LEARNER_RTOL and param_err <= LEARNER_RTOL
+           and noise_err <= 2 * cfg.lr * steps and moved > LEARNER_RTOL,
+           "learner update: card != CPU")
+    return max(loss_err, grad_err, metric_err)
+
+
+def _timed(times, name, fn, device):
+    """``fn`` with its wall time (the device synced before and after)
+    appended to ``times[name]``."""
+    import torch
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def wrapper(*args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        times[name].append(time.perf_counter() - t0)
+        return out
+    return wrapper
+
+
+def phase_train(device="cuda"):
+    """[train], this slice's main path: ``Trainer("rectangle_pin")`` with
+    the default ``PPOConfig`` (128 boards x 32 steps, 30 epochs of 32
+    minibatches: 960 Adam steps an iteration) from the fixture's Flax
+    weights, ``TRAIN_ITERS`` iterations into a temporary results root, a
+    restore and ``TRAIN_MORE`` more; then ``generate_rollouts``. Returns
+    (seconds an iteration, rollout s, update s, env-steps/s, Adam
+    steps/s, launches and busy share of a minibatch step, peak MB)."""
+    import csv
+    import math
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from placement_tpu_torch.agent.trainer import Trainer
+    from placement_tpu_torch.viz.rollout import generate_rollouts
+    variables = _fixture_variables()
+    data = dict(np.load(POLICY_FIXTURE))
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    trainer = Trainer("rectangle_pin", results_root=root, device=device,
+                      run_name="PPO_rectangle_pin_smoke")
+    learner = trainer.learner
+    times = {"rollout": [], "update": [], "iteration": []}
+    windows = []
+    rollout = _timed(times, "rollout", learner.rollout, device)
+
+    def rollout_kept(state):
+        out = rollout(state)
+        windows.append(out[1])
+        return out
+
+    learner.rollout = rollout_kept
+    learner.update = _timed(times, "update", learner.update, device)
+    rows = []
+    t_last = [time.perf_counter()]
+
+    def on_iteration(it, row):
+        now = time.perf_counter()
+        times["iteration"].append(now - t_last[0])
+        t_last[0] = now
+        rows.append((it, row))
+
+    state = trainer.init_state(0, flax_variables=variables)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    t_last[0] = time.perf_counter()
+    result = trainer.run(TRAIN_ITERS, state=state, on_iteration=on_iteration)
+    n = learner.cfg.train_batch
+    # iteration 1's episodes: the carried policy's returns (terminal
+    # rewards, every board from reset)
+    w = windows[0]
+    returns = w.reward[w.done].double().cpu().numpy()
+    mean, se = float(returns.mean()), float(
+        returns.std(ddof=1) / math.sqrt(len(returns)))
+    want, want_se = float(data["rollout_mean"]), float(data["rollout_se"])
+    delta = (mean - want) / math.hypot(se, want_se)
+    with open(os.path.join(result.run_dir, "progress.csv"), newline="") as f:
+        header = next(csv.reader(f))
+    after = result.state.model.state_dict()
+    moved = max(float((after[k].float() - before[k].float()).abs().max())
+                for k in before)
+    print(f"[train] Trainer('rectangle_pin'), default PPOConfig ({n} "
+          f"transitions, {learner.cfg.num_sgd_iter} epochs x "
+          f"{n // learner.cfg.minibatch_size} minibatches), Flax weights "
+          f"carried: {TRAIN_ITERS} iterations; rows {rows!r}", flush=True)
+    print(f"[train] iteration 1's {len(returns)} episodes: mean return "
+          f"{mean!r} (se {se!r}) vs JAX's pooled rollout {want!r} (se "
+          f"{want_se!r}): {delta!r} combined se; row mean "
+          f"{rows[0][1]['episode_reward_mean']!r}", flush=True)
+    _check(all(math.isfinite(v) for _, row in rows for v in row.values()),
+           "a train metric is not finite")
+    _check(moved > 0, "the parameters did not move")
+    _check(all(row["pool_wraps"] == 0 for _, row in rows), "pool wraps")
+    _check(result.state.steps == TRAIN_ITERS * n, "steps")
+    _check(header == JAX_PROGRESS_COLUMNS, f"progress.csv columns {header}")
+    _check(os.path.exists(os.path.join(result.run_dir, "params.json")),
+           "params.json")
+    _check(trainer.ckpt.all_steps() == list(range(1, TRAIN_ITERS + 1)),
+           f"checkpoints kept: {trainer.ckpt.all_steps()}")
+    _check(abs(rows[0][1]["episode_reward_mean"] - mean) <= 1e-4
+           * max(1.0, abs(mean)), "episode accounting")
+    _check(abs(delta) <= STEPPER_SE, "iteration 1's mean return")
+
+    restored = trainer.restore()
+    _check(restored.steps == TRAIN_ITERS * n, "restored steps")
+    rows.clear()
+    t_last[0] = time.perf_counter()
+    result = trainer.run(TRAIN_MORE, state=restored,
+                         on_iteration=on_iteration)
+    _check([it for it, _ in rows] == list(
+        range(TRAIN_ITERS + 1, TRAIN_ITERS + TRAIN_MORE + 1)),
+        f"iterations after the restore: {[it for it, _ in rows]}")
+    _check(result.state.steps == (TRAIN_ITERS + TRAIN_MORE) * n,
+           "steps after the restore")
+    _check(all(math.isfinite(v) for _, row in rows for v in row.values()),
+           "a train metric after the restore is not finite")
+    generate_rollouts(trainer, state=result.state)
+    for name in ("components.pkl", "actions.pkl", "rectangle_pin.csv"):
+        _check(os.path.exists(os.path.join(result.run_dir, name)),
+               f"generate_rollouts wrote no {name}")
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else None
+
+    # one minibatch step of the last window, profiled
+    batch = learner.flat_batch(windows[-1],
+                               torch.zeros_like(windows[-1].value[0]))
+    sel = torch.arange(learner.cfg.minibatch_size, device=learner.device)
+    mb = {k: ({o: x[sel] for o, x in v.items()} if k == "obs" else v[sel])
+          for k, v in batch.items()}
+    learner.minibatch_step(result.state, mb, result.state.kl_coeff)
+    _, launches, busy, wall = _profiled(lambda: learner.minibatch_step(
+        result.state, mb, result.state.kl_coeff))
+    trainer.close()
+    shutil.rmtree(root)
+
+    it_s = float(np.mean(times["iteration"][1:]))
+    roll_s = float(np.mean(times["rollout"][1:]))
+    upd_s = float(np.mean(times["update"][1:]))
+    steps = learner.cfg.num_sgd_iter * (n // learner.cfg.minibatch_size)
+    print(f"[train] seconds an iteration (iterations 2-{TRAIN_ITERS} and "
+          f"{TRAIN_ITERS + 1}): {times['iteration']!r}; rollout "
+          f"{times['rollout']!r}; update {times['update']!r}", flush=True)
+    print(f"[train] mean of iterations 2+: {it_s!r} s an iteration, rollout "
+          f"{roll_s!r} s ({n / roll_s!r} env-steps/s, share "
+          f"{roll_s / it_s!r}), update {upd_s!r} s ({steps / upd_s!r} Adam "
+          f"steps/s, share {upd_s / it_s!r}); peak memory {peak!r} MB "
+          f"(torch.cuda.max_memory_allocated); {_card()}", flush=True)
+    if launches is None:
+        print("[train] one minibatch step: not measured (the profiler "
+              "recorded no device events)")
+    else:
+        print(f"[train] one minibatch step (128 transitions: train forward, "
+              f"evaluate, loss, backward, Adam) profiled: {launches} kernel "
+              f"launches, device busy {busy!r} ms of {wall!r} ms wall (busy "
+              f"share {busy / wall!r})", flush=True)
+    return it_s, roll_s, upd_s, n / roll_s, steps / upd_s, launches, \
+        (busy / wall if launches else None), peak
+
+
+def phase_train_learns(device="cuda"):
+    """[train learns]: tests/agent/test_ppo.py:174-193 on ``device``: the
+    6x6 square env, ``PPOConfig(num_envs=32, unroll_length=16,
+    minibatch_size=64, num_sgd_iter=8, lr=3e-4)``, ``LEARNS_ITERS``
+    iterations; the mean of the last 5 beats the first 5 by more than 1.0
+    and exceeds 7.5."""
+    import numpy as np
+    import torch
+    from placement_tpu_torch.agent.policy import Policy, model_config_for
+    from placement_tpu_torch.agent.ppo import PPOConfig, PPOLearner
+    from placement_tpu_torch.env.types import EnvParams, Variant
+    params = EnvParams(variant=Variant.SQUARE, height=6, width=6,
+                       component_n=2)
+    cfg = PPOConfig(num_envs=32, unroll_length=16, minibatch_size=64,
+                    num_sgd_iter=8, lr=3e-4)
+    learner = PPOLearner(params, Policy(
+        params, model_config_for(params, "square"), device), cfg)
+    state = learner.init(torch.Generator(device).manual_seed(0))
+    t0 = time.perf_counter()
+    rews = []
+    for _ in range(LEARNS_ITERS):
+        state, m = learner.train_step(state)
+        rews.append(float(m["episode_reward_mean"]))
+    dt = time.perf_counter() - t0
+    first, last = float(np.mean(rews[:5])), float(np.mean(rews[-5:]))
+    print(f"[train learns] 6x6 square, {LEARNS_ITERS} iterations in {dt!r} "
+          f"s: first 5 {first!r}, last 5 {last!r} (need > first + 1.0 and "
+          f"> 7.5); curve {[round(r, 3) for r in rews]}", flush=True)
+    _check(last > first + 1.0 and last > 7.5, "PPO did not learn")
+    return first, last
+
+
 def main():
     device_name = phase_device()
     import torch
@@ -1406,6 +1748,13 @@ def main():
     pooled_out = phase_pooled(gen)
     web_max_rate = phase_matrix_pooled()
     phase_entry()
+    # the learner (no kernel of its own): [learner], the [train] main path
+    # and [train learns]
+    t_learn = time.perf_counter()
+    learner_err = phase_learner()
+    train = phase_train()
+    learns = phase_train_learns()
+    t_learn = time.perf_counter() - t_learn
     # no one PyTorch call computes a chunk: library_ms is null
     entries = []
     for k, (row, *_, replaces) in KERNELS.items():
@@ -1460,6 +1809,13 @@ def main():
           f"{pooled_out[1]} launches a step, gated vs ungated largest diff "
           f"{pooled_out[4]!r}; eager simulate {stepper_rate!r}; "
           f"web_max_pooled {web_max_rate!r} env-steps/s")
+    print(f"[learner path] {t_learn!r} s for [learner], [train] and "
+          f"[train learns]; card vs CPU worst rel err {learner_err!r}; "
+          f"[train] {train[0]!r} s an iteration (rollout {train[1]!r}, "
+          f"update {train[2]!r}), {train[3]!r} env-steps/s in the rollout, "
+          f"{train[4]!r} Adam steps/s, {train[5]} launches a minibatch step "
+          f"(busy share {train[6]!r}), peak {train[7]!r} MB; [train learns] "
+          f"first 5 {learns[0]!r}, last 5 {learns[1]!r}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

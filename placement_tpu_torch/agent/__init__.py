@@ -1,1 +1,2 @@
-"""Agents of the port: the policy (acting) and the random-policy baseline."""
+"""Agents of the port: the policy, the PPO learner and trainer, and the
+random-policy baseline."""

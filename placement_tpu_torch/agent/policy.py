@@ -5,8 +5,8 @@ A ``Policy`` holds its ``PlacementModel`` on a device, in eval mode, and
 turns a batch of observations into actions, their log-probabilities and
 values. Its weights come from ``init_parameters`` (Flax's initializer
 distributions, from a seed) or are carried from the JAX package with
-``load_flax``. ``evaluate`` (re-scoring stored transitions for the PPO
-loss) comes with the learner.
+``load_flax``. ``evaluate`` re-scores stored transitions for the PPO loss
+(``agent/ppo.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import torch
 
 from placement_tpu_torch.env import core
 from placement_tpu_torch.env.types import EnvParams, EnvState, Variant
-from placement_tpu_torch.env.wrappers import decode_flat_action
+from placement_tpu_torch.env.wrappers import (
+    decode_flat_action, encode_flat_action)
 from placement_tpu_torch.models import convert
 from placement_tpu_torch.models import distributions as D
 from placement_tpu_torch.models.zoo import (
@@ -94,6 +95,38 @@ class Policy:
                 else D.cat_sample(gen, logits))
         action = decode_flat_action(self.env_params, flat)
         return action, D.cat_logp(logits, flat), value, logits
+
+    def evaluate(self, obs: Dict[str, torch.Tensor], actions: torch.Tensor,
+                 behavior_inputs: torch.Tensor, gen: torch.Generator
+                 ) -> Tuple[torch.Tensor, ...]:
+        """(logp, entropy, value, kl) of stored transitions under the
+        current weights, with gradients (JAX ``agent/policy.py:113-135``).
+
+        The forward runs in train mode, so the BatchNorm layers normalise
+        with the batch's statistics and move their running statistics
+        (Flax's rule, ``models/blocks.py::BatchNorm``); the module is back
+        in eval mode on return. ``kl`` is KL(behaviour || current), the
+        behaviour distribution rebuilt from ``behavior_inputs`` (its masked
+        logits, or its encoding under the *current* heads for factorized
+        presets, gradients through them as in JAX). A factorized preset's
+        entropy and KL are sampled estimates, drawn from ``gen`` in JAX's
+        order: the entropy's draws, then the KL's."""
+        self.model.train()
+        try:
+            out = self.model(obs)
+        finally:
+            self.model.eval()
+        value = out["value"]
+        if self.cfg.is_factorized:
+            dist = self.factorized_dist(out["encoding"], obs["action_mask"])
+            prev = self.factorized_dist(behavior_inputs, obs["action_mask"])
+            logp = dist.logp(actions)
+            entropy = dist.entropy(gen)
+            return logp, entropy, value, prev.kl(dist, gen)
+        logits = out["logits"]
+        flat = encode_flat_action(self.env_params, actions)
+        return (D.cat_logp(logits, flat), D.cat_entropy(logits), value,
+                D.cat_kl(behavior_inputs, logits))
 
     def policy_fn(self):
         """``fn(gen, params, states) -> actions``: observe the boards and

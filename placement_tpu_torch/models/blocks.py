@@ -36,10 +36,59 @@ def get_activation(name) -> Callable:
     return ACTIVATIONS[name]
 
 
-def batch_norm(cls, features: int) -> nn.Module:
-    """Flax ``BatchNorm(momentum=0.99, epsilon=1e-3)``: PyTorch counts the
-    momentum from the other side."""
-    return cls(features, eps=1e-3, momentum=0.01)
+class BatchNorm(nn.Module):
+    """Flax ``BatchNorm(momentum=0.99, epsilon=1e-3)`` over dimension 1 of
+    [B, C] or [B, C, H, W] (JAX ``blocks.py:54-55``, ``zoo.py:101-103``),
+    with the ``nn.BatchNorm*`` parameter and buffer names, so a state dict
+    carries across unchanged (``models/convert.py``).
+
+    Eval mode normalises with the running statistics by ``F.batch_norm``,
+    as ``nn.BatchNorm2d`` does. Train mode follows Flax, not PyTorch: it
+    normalises with the biased batch statistics, mean E[x] and variance
+    max(E[x^2] - E[x]^2, 0) (Flax's ``use_fast_variance``), with gradients
+    through both, and moves the running statistics by
+    ``r <- 0.99 r + 0.01 batch`` with that same biased variance.
+    ``nn.BatchNorm*`` would move the running variance by the unbiased one,
+    n / (n - 1) larger. ``num_batches_tracked`` stays 0: it exists only so
+    that the state dict keeps PyTorch's keys."""
+
+    def __init__(self, features: int, momentum: float = 0.99,
+                 eps: float = 1e-3):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.int64))
+
+    def reset_parameters(self) -> None:
+        """Flax's initial values: scale 1, bias 0, statistics (0, 1)."""
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+            self.num_batches_tracked.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = x.mean(dim=dims)
+        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_((1 - m) * mean)
+            self.running_var.mul_(m).add_((1 - m) * var)
+        shape = [1] * x.dim()
+        shape[1] = x.shape[1]
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) + \
+            self.bias.view(shape)
 
 
 def _same_pad(k: int) -> Tuple[int, int, int, int]:
@@ -72,8 +121,7 @@ class ConvBlocks(nn.Module):
         for i in range(num_blocks):
             setattr(self, f"Conv_{i}", nn.Conv2d(c, num_filters, kernel_size))
             if use_batch_norm:
-                setattr(self, f"BatchNorm_{i}",
-                        batch_norm(nn.BatchNorm2d, num_filters))
+                setattr(self, f"BatchNorm_{i}", BatchNorm(num_filters))
             c = num_filters
         self.out_channels = c
 

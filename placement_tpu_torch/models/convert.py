@@ -17,7 +17,9 @@ module names, so a Flax path ``a/b/c/leaf`` becomes the key ``a.b.c.<name>``:
                                      (and ``num_batches_tracked`` = 0)
 
 The result is checked against the module ``cfg`` builds: a missing or
-extra key, or a shape that differs, raises.
+extra key, or a shape that differs, raises. ``to_flax`` maps the other
+way, for a state dict or the gradients (``flax_grads``), so that both can
+be held to the JAX package's trees path by path.
 """
 
 from __future__ import annotations
@@ -109,3 +111,61 @@ def state_dict_from_flax(variables: Tree, cfg: ModelConfig
             raise ValueError(f"{k}: shape {tuple(sd[k].shape)} from Flax, "
                              f"{tuple(t.shape)} in the port's module")
     return sd
+
+
+def to_flax(named: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A state dict, or any ``{state_dict key: tensor}`` such as the
+    gradients, as flat Flax paths (``"params/grid_conv/Conv_0/kernel"``,
+    ``"batch_stats/.../mean"``) of numpy arrays: the inverse of
+    ``state_dict_from_flax``, ``num_batches_tracked`` dropped."""
+    out: Dict[str, np.ndarray] = {}
+    for key, t in named.items():
+        *mods, name = key.split(".")
+        path = "/".join(mods)
+        v = t.detach().cpu().numpy()
+        if name == "num_batches_tracked":
+            continue
+        if name in ("running_mean", "running_var"):
+            out[f"batch_stats/{path}/{name[8:]}"] = v
+        elif name == "bias":
+            out[f"params/{path}/bias"] = v
+        elif name == "weight" and v.ndim == 1:
+            out[f"params/{path}/scale"] = v
+        elif name == "weight" and v.ndim == 2:
+            out[f"params/{path}/kernel"] = v.T
+        elif name == "weight" and v.ndim == 4:
+            out[f"params/{path}/kernel"] = v.transpose(2, 3, 1, 0)
+        else:
+            raise ValueError(f"{key}: no Flax counterpart")
+    return out
+
+
+def flax_grads(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The gradients of ``model``'s parameters at their Flax paths (a
+    parameter without a gradient raises)."""
+    missing = [n for n, p in model.named_parameters() if p.grad is None]
+    if missing:
+        raise ValueError(f"no gradient for {missing}")
+    return to_flax({n: p.grad for n, p in model.named_parameters()})
+
+
+def norm_fed_biases(paths) -> set:
+    """Of the Flax paths ``paths``, the biases that feed a batch norm
+    directly: a conv block's ``Conv_i`` before its ``BatchNorm_i``, and the
+    rectangle presets' ``flat_feature_dense`` before ``flat_feature_norm``.
+    In train mode their gradient is 0 in exact arithmetic (the norm
+    subtracts the batch mean), so what any implementation computes for it
+    is rounding noise, and Adam turns that noise into steps of up to ``lr``:
+    two implementations agree on these parameters only within
+    2 * lr a step."""
+    paths = set(paths)
+    out = set()
+    for p in paths:
+        head, _, leaf = p.rpartition("/")
+        if leaf != "bias":
+            continue
+        norm = head.replace("/Conv_", "/BatchNorm_").replace(
+            "flat_feature_dense", "flat_feature_norm")
+        if norm != head and f"{norm}/scale" in paths:
+            out.add(p)
+    return out

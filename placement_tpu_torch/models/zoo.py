@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from placement_tpu_torch.models.blocks import (
-    ConvBlocks, SelfAttention, batch_norm, mask_logits)
+    BatchNorm, ConvBlocks, SelfAttention, mask_logits)
 
 F32 = torch.float32
 
@@ -125,8 +125,8 @@ class PlacementModel(nn.Module):
             self.flat_feature_dense = nn.Linear(
                 cfg.max_num_components * cfg.component_feature_vector_width,
                 cfg.component_feature_encoding_dimension)
-            self.flat_feature_norm = batch_norm(
-                nn.BatchNorm1d, cfg.component_feature_encoding_dimension)
+            self.flat_feature_norm = BatchNorm(
+                cfg.component_feature_encoding_dimension)
             enc += cfg.component_feature_encoding_dimension
 
         if t.startswith("rectangle_pin") and t != "rectangle_spatial_pin" \
@@ -338,6 +338,6 @@ def init_parameters(model: nn.Module, gen: torch.Generator) -> nn.Module:
                                       generator=gen)
                 m.weight.copy_(w)
                 m.bias.zero_()
-            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            elif isinstance(m, BatchNorm):
                 m.reset_parameters()
     return model

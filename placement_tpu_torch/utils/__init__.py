@@ -1,1 +1,1 @@
-"""Config utilities of the port."""
+"""Config, checkpoints, metrics and profiling of the port."""

@@ -8,8 +8,10 @@ play side by side as one batch of boards through ``core.step``, and the
 padded tensors are decoded into the host-side records
 (:class:`ComponentRecord` / :class:`PinRecord`) that the renderer and the
 web app read. ``save_to_file`` / ``load_pickle`` / ``save_config_to_csv``
-are the JAX module's file helpers, copied. Exporting a trained run's
-rollouts (``generate_rollouts``) comes with the trainer.
+are the JAX module's file helpers, copied. ``generate_rollouts`` exports a
+trained run's rollouts: its pickles hold plain Python ints in the records,
+no tensors, so the JAX package's ``viz.rollout.load_pickle`` and the web
+app read them.
 """
 
 from __future__ import annotations
@@ -166,3 +168,27 @@ def save_config_to_csv(path: str, env_config: Dict[str, Any],
         w = csv.DictWriter(f, fieldnames=list(row))
         w.writeheader()
         w.writerow(row)
+
+
+def generate_rollouts(trainer, state=None, num_samples: int = 5,
+                      seed: int = 0) -> str:
+    """Export rollouts for a trained run (utils/agent/utils.py:154-185):
+    restore the newest checkpoint (unless ``state``, the run's
+    ``TrainState``, is given), play ``num_samples`` greedy episodes on the
+    trainer's device, pickle them and write the config CSV into the run
+    dir. Returns the run dir."""
+    if state is None:
+        state = trainer.restore()
+    if state.model is not trainer.policy.model:
+        raise ValueError("state belongs to another trainer's policy")
+    comps, actions, _ = sample_rollout(
+        trainer.env_params, trainer.policy, num_samples=num_samples,
+        seed=seed, device=trainer.device)
+    save_to_file(trainer.run_dir, comps, actions)
+    env_cfg = trainer.raw_config.get("env_config", {})
+    model_cfg = trainer.raw_config.get("model", {}).get(
+        "custom_model_config", {})
+    save_config_to_csv(
+        os.path.join(trainer.run_dir, f"{trainer.model_type}.csv"),
+        env_cfg, model_cfg)
+    return trainer.run_dir

@@ -24,6 +24,7 @@ freshness test below fails when they go stale).
 import hashlib
 import json
 import pathlib
+import pkgutil
 import re
 import subprocess
 import sys
@@ -34,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import placement_tpu_torch
 from placement_tpu.ops import fused_rollout as jax_fused
 from placement_tpu.utils.config import load_experiment
 from placement_tpu_torch.ops import _build
@@ -416,20 +418,10 @@ def test_reduced_kernels_are_warp_kernels():
 
 
 #: every module of the port, and the smoke script (its main is guarded)
-PORT_MODULES = (
-    "placement_tpu_torch.env.types", "placement_tpu_torch.env.core",
-    "placement_tpu_torch.env.generator", "placement_tpu_torch.env.routing",
-    "placement_tpu_torch.env.wrappers", "placement_tpu_torch.env.testing",
-    "placement_tpu_torch.ops.sat", "placement_tpu_torch.agent.random_policy",
-    "placement_tpu_torch.env.pooled", "placement_tpu_torch.env.gym_api",
-    "placement_tpu_torch.models.blocks", "placement_tpu_torch.models.zoo",
-    "placement_tpu_torch.models.distributions",
-    "placement_tpu_torch.models.convert", "placement_tpu_torch.agent.policy",
-    "placement_tpu_torch.viz.rollout", "placement_tpu_torch.graft_entry",
-    "placement_tpu_torch.ops._build", "placement_tpu_torch.ops.fused_rollout",
-    "placement_tpu_torch.ops.fused_routing",
-    "placement_tpu_torch.parallel.mesh", "placement_tpu_torch.tools.bench_matrix",
-    "placement_tpu_torch.utils.config", "chip_smoke")
+PORT_MODULES = tuple(
+    m.name for m in pkgutil.walk_packages(placement_tpu_torch.__path__,
+                                          "placement_tpu_torch.")
+) + ("chip_smoke",)
 
 
 def test_port_imports_no_jax():

@@ -562,3 +562,137 @@ def test_cuda_policy_rollout_and_entry(cuda):
     logits, value = f(*args)
     assert logits.device.type == "cuda" and logits.shape == (16, 400)
     assert bool(torch.isfinite(value).all())
+
+
+# ---------------------------------------------------------------------------
+# The learner: Policy.evaluate, one PPO update and the Trainer on the card
+# ---------------------------------------------------------------------------
+
+def _close_to_scale(got, want, rtol, atol, what):
+    """max |got - want| <= rtol * max |want| + atol over the tensor."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= rtol * scale + atol, (what, err, scale)
+
+
+@pytest.mark.gpu
+def test_cuda_evaluate_matches_cpu(cuda):
+    """``Policy.evaluate`` of the carried flagship on the fixture's
+    observations (the greedy actions, JAX's logits as the behaviour), TF32
+    off: logp, entropy, value, KL and the moved batch statistics within
+    1e-4 relative of the CPU's."""
+    from placement_tpu_torch.models import convert
+    _, card, obs, data = _flagship_policy(cuda)
+    _, cpu, cpu_obs, _ = _flagship_policy("cpu")
+    act, beh = torch.as_tensor(data["greedy"]), torch.as_tensor(
+        data["logits"])
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = card.evaluate(obs, act.to(cuda), beh.to(cuda),
+                            torch.Generator(cuda))
+    want = cpu.evaluate(cpu_obs, act, beh, torch.Generator())
+    for name, g, w in zip(("logp", "entropy", "value", "kl"), got, want):
+        _close_to_scale(g, w, 1e-4, 1e-6, name)
+    g_sd = convert.to_flax(card.model.state_dict())
+    w_sd = convert.to_flax(cpu.model.state_dict())
+    for k in w_sd:
+        if k.startswith("batch_stats/"):
+            _close_to_scale(torch.as_tensor(g_sd[k]),
+                            torch.as_tensor(w_sd[k]), 1e-4, 1e-6, k)
+
+
+@pytest.mark.gpu
+def test_cuda_update_matches_cpu(cuda):
+    """One ``update`` (2 epochs of 8 minibatches of 128) of the carried
+    flagship on the card, fed the CPU's rollout window and permutations,
+    TF32 off: parameters and batch statistics within 1e-4 of the CPU's
+    (the biases that feed a batch norm within 2 * lr a step,
+    ``convert.norm_fed_biases``), ``kl_coeff`` and the loss metrics within
+    1e-4 relative."""
+    from placement_tpu_torch.agent.ppo import PPOConfig, PPOLearner
+    from placement_tpu_torch.models import convert
+    params, card, _, data = _flagship_policy(cuda)
+    _, cpu, _, _ = _flagship_policy("cpu")
+    variables = convert.unflatten({k[4:]: v for k, v in data.items()
+                                   if k.startswith("var/")})
+    cfg = PPOConfig(num_envs=128, unroll_length=8, num_sgd_iter=2)
+    c_learner, g_learner = PPOLearner(params, cpu, cfg), \
+        PPOLearner(params, card, cfg)
+    c_state = c_learner.init(torch.Generator().manual_seed(0), variables)
+    g_state = g_learner.init(torch.Generator(cuda).manual_seed(0),
+                             variables)
+    c_state, traj, last_value, _ = c_learner.rollout(c_state)
+    perm_gen = torch.Generator().manual_seed(1)
+    perms = [torch.randperm(cfg.train_batch, generator=perm_gen)
+             for _ in range(cfg.num_sgd_iter)]
+    c_state, want = c_learner.update(c_state, traj, last_value, perms)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        g_state, got = g_learner.update(g_state, traj.to(cuda),
+                                        last_value.to(cuda), perms)
+    for k in want:
+        _close_to_scale(got[k], want[k], 1e-4, 1e-6, k)
+    g_sd = convert.to_flax(card.model.state_dict())
+    w_sd = convert.to_flax(cpu.model.state_dict())
+    noise = convert.norm_fed_biases(w_sd)
+    steps = cfg.num_sgd_iter * cfg.train_batch // cfg.minibatch_size
+    for k in w_sd:
+        tol = 2 * cfg.lr * steps if k in noise else 1e-4
+        err = float(abs(g_sd[k] - w_sd[k]).max())
+        assert err <= tol, (k, err)
+
+
+@pytest.mark.gpu
+def test_cuda_trainer_keeps_its_state_on_the_card(cuda, tmp_path):
+    """One iteration of a ``Trainer`` on the card: every tensor of its
+    ``TrainState`` (weights, statistics, optimizer state but Adam's step
+    counts, boards, accumulators, ``kl_coeff``) lies on the card."""
+    from placement_tpu_torch.agent.ppo import PPOConfig
+    from placement_tpu_torch.agent.trainer import Trainer
+    from placement_tpu_torch.env.types import STATE_FIELDS
+    trainer = Trainer("rectangle_pin", results_root=str(tmp_path),
+                      ppo_config=PPOConfig(num_envs=64, unroll_length=8,
+                                           num_sgd_iter=2),
+                      use_tensorboard=False, run_name="card")
+    try:
+        state = trainer.run(num_iterations=1).state
+    finally:
+        trainer.close()
+    tensors = dict(state.model.state_dict())
+    for i, s in state.optimizer.state_dict()["state"].items():
+        tensors.update({f"opt/{i}/{k}": v for k, v in s.items()
+                        if k != "step"})
+    tensors.update({f: getattr(state.env_states, f) for f in STATE_FIELDS})
+    tensors.update(kl_coeff=state.kl_coeff, ret=state.ep_return_acc,
+                   len=state.ep_len_acc)
+    assert state.gen.device.type == "cuda"
+    off = [k for k, v in tensors.items() if v.device.type != "cuda"]
+    assert not off, off
+    assert state.steps == 512
+
+
+def test_trainer_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from placement_tpu_torch.agent.trainer import Trainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer("rectangle_pin", results_root=str(tmp_path))
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_never_waits_for_the_card(cuda):
+    """A PPO iteration (rollout without ``route_budget``, then the update)
+    enqueues its work without a host sync: only the caller's read of the
+    metrics waits."""
+    from placement_tpu_torch.agent.policy import Policy, model_config_for
+    from placement_tpu_torch.agent.ppo import PPOConfig, PPOLearner
+    params = load_env_params("rectangle_pin")
+    learner = PPOLearner(params, Policy(
+        params, model_config_for(params, "rectangle_pin"), cuda),
+        PPOConfig(num_envs=64, unroll_length=8, num_sgd_iter=2))
+    state = learner.init(torch.Generator(cuda).manual_seed(0))
+    state, _ = learner.train_step(state)           # warm-up
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = learner.train_step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
