@@ -30,7 +30,8 @@ entry points a user calls:
   * the learner: ``Trainer("rectangle_pin")`` training the flagship from
     its carried Flax weights with RLlib's PPO defaults (``Policy.evaluate``,
     ``agent/ppo.py``), checkpointed, restored and continued, its rollouts
-    exported; and PPO learning the tiny square env.
+    exported; PPO learning the tiny square env; and the same training
+    data-parallel over ranks (``Trainer(mesh=...)``).
 
 Phases (any failure raises and the exit code is not 0):
   1. device  — requires CUDA; prints the card and its power limit
@@ -75,7 +76,9 @@ Phases (any failure raises and the exit code is not 0):
  11. [reset -> kernel]: ``fused_rollout.init_leaves`` on the card (flagship,
      web default), one chunk of the kernel held to its plain version from
      the same leaves, as in phase 5
- 12. the entry point ``graft_entry.dryrun_multigpu(2)``, from reset boards
+ 12. the entry point ``graft_entry.dryrun_multigpu(2)``: one sharded PPO
+     train step (metrics finite, the same on both ranks), then the fused
+     rollout from reset boards
  13. [policy]: the flagship model (tests/fixtures/torch_policy_flagship.npz:
      Flax weights, 64 JAX observations, JAX's outputs) on the card: logits
      and value within 1e-4 relative of JAX's and the CPU's (cuDNN's TF32
@@ -113,6 +116,15 @@ Phases (any failure raises and the exit code is not 0):
  20. [train learns]: tests/agent/test_ppo.py:174-193 on the card (6x6
      square, 40 iterations): the last 5 beat the first 5 by more than 1.0
      and exceed 7.5
+ 21. [train dp]: [train]'s setup over ranks (``parallel/mesh.py``'s
+     learner half through ``Trainer(mesh=...)``): ``min(4, cards)`` ranks
+     over NCCL with 2 or more cards, else 2 ranks sharing the card over
+     gloo; 2 iterations: iteration 1's six metrics of JAX's sharded test
+     within rtol 2e-3, atol 1e-5 of [train]'s, the parameters bitwise equal
+     across the ranks, 0 wraps; seconds an iteration (rollout, update) on
+     each rank, env-steps/s in all and per card against [train]'s, the
+     collectives of one minibatch step (``torch.profiler``, rank 0), peak
+     memory a rank
 
 Every timed window follows at least ``WARM_S`` seconds of chained launches:
 a card fresh from idle runs its first ~50 ms slower while its clock ramps.
@@ -974,14 +986,22 @@ def phase_reset_kernel(name, block, gen):
 
 def phase_dryrun():
     """The entry point ``graft_entry.dryrun_multigpu(2)``: two spawned ranks
-    sharing the card, from reset boards. Returns its kernel launches."""
+    (sharing the card on a machine with one), the learner half (one
+    sharded PPO train step: every metric finite, the same on both ranks)
+    and the fused half from reset boards. Returns its kernel launches."""
+    import math
     from placement_tpu_torch import graft_entry
     results = graft_entry.dryrun_multigpu(2)
     launches = sum(res["launches"] for res in results)
-    print(f"[entry point] graft_entry.dryrun_multigpu(2): totals "
-          f"{results[0]['totals']}, launches {[r['launches'] for r in results]}",
-          flush=True)
+    metrics = results[0]["metrics"]
+    print(f"[entry point] graft_entry.dryrun_multigpu(2): train step "
+          f"{metrics!r}; totals {results[0]['totals']}, launches "
+          f"{[r['launches'] for r in results]}", flush=True)
     _check(launches == 2, "the dry run missed the kernel")
+    _check(all(math.isfinite(v) for v in metrics.values())
+           and results[1]["metrics"] == metrics,
+           "the dry run's train step: metrics not finite or not the same "
+           "on both ranks")
     return launches
 
 
@@ -1498,7 +1518,8 @@ def phase_train(device="cuda"):
     weights, ``TRAIN_ITERS`` iterations into a temporary results root, a
     restore and ``TRAIN_MORE`` more; then ``generate_rollouts``. Returns
     (seconds an iteration, rollout s, update s, env-steps/s, Adam
-    steps/s, launches and busy share of a minibatch step, peak MB)."""
+    steps/s, launches and busy share of a minibatch step, peak MB,
+    iteration 1's metrics row)."""
     import csv
     import math
     import os
@@ -1576,6 +1597,7 @@ def phase_train(device="cuda"):
     _check(abs(rows[0][1]["episode_reward_mean"] - mean) <= 1e-4
            * max(1.0, abs(mean)), "episode accounting")
     _check(abs(delta) <= STEPPER_SE, "iteration 1's mean return")
+    first_row = dict(rows[0][1])
 
     restored = trainer.restore()
     _check(restored.steps == TRAIN_ITERS * n, "restored steps")
@@ -1629,7 +1651,7 @@ def phase_train(device="cuda"):
               f"launches, device busy {busy!r} ms of {wall!r} ms wall (busy "
               f"share {busy / wall!r})", flush=True)
     return it_s, roll_s, upd_s, n / roll_s, steps / upd_s, launches, \
-        (busy / wall if launches else None), peak
+        (busy / wall if launches else None), peak, first_row
 
 
 def phase_train_learns(device="cuda"):
@@ -1662,6 +1684,182 @@ def phase_train_learns(device="cuda"):
           f"> 7.5); curve {[round(r, 3) for r in rews]}", flush=True)
     _check(last > first + 1.0 and last > 7.5, "PPO did not learn")
     return first, last
+
+
+#: ``[train dp]``: iterations, and the six metrics JAX's sharded test holds
+#: to the unsharded step (tests/parallel/test_mesh.py:83-88) at its
+#: tolerance
+DP_ITERS = 2
+DP_METRICS = ("episode_reward_mean", "episodes_this_iter", "policy_loss",
+              "vf_loss", "kl", "custom_metrics/normalized_wirelengths_mean")
+DP_RTOL, DP_ATOL = 2e-3, 1e-5
+
+
+def _collectives(prof):
+    """(collectives issued, their host ms, their device ms, kernel
+    launches, device busy ms) in a ``torch.profiler`` trace: the
+    ``c10d::allreduce_`` calls, the NCCL kernels' time on the card (none
+    over gloo, whose collectives run on the host), and all the kernels."""
+    import torch
+    calls = [e for e in prof.events() if e.name == "c10d::allreduce_"]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    return (len(calls), sum(e.cpu_time_total for e in calls) / 1e3,
+            sum(e.device_time_total for e in nccl) / 1e3, len(kernels),
+            sum(e.device_time_total for e in kernels) / 1e3)
+
+
+def _train_dp_rank(rank, world, root, variables, device="cuda"):
+    """One rank of ``[train dp]`` (a ``mesh.spawn_ranks`` worker):
+    ``Trainer("rectangle_pin", mesh=make_mesh(world))``, the default
+    ``PPOConfig``, the fixture's weights, seed 0, ``DP_ITERS`` iterations;
+    then the parameters held bitwise equal across the ranks
+    (``mesh.replicated``) and one more minibatch step of this rank's block,
+    profiled on rank 0. TF32 off, as ``phase_device`` sets it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from placement_tpu_torch.agent.trainer import Trainer
+    from placement_tpu_torch.parallel import mesh
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    m = mesh.make_mesh(world, device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer("rectangle_pin", results_root=root, mesh=m,
+                      run_name="PPO_rectangle_pin_dp", use_tensorboard=False)
+    learner = trainer.learner
+    times = {"rollout": [], "update": [], "iteration": []}
+    windows = []
+    rollout = _timed(times, "rollout", learner.rollout, m.device)
+
+    def rollout_kept(state):
+        out = rollout(state)
+        windows.append(out[1])
+        return out
+
+    learner.rollout = rollout_kept
+    learner.update = _timed(times, "update", learner.update, m.device)
+    rows = []
+    t_last = [time.perf_counter()]
+
+    def on_iteration(it, row):
+        now = time.perf_counter()
+        times["iteration"].append(now - t_last[0])
+        t_last[0] = now
+        rows.append(row)
+
+    state = trainer.init_state(0, flax_variables=variables)
+    t_last[0] = time.perf_counter()
+    result = trainer.run(DP_ITERS, state=state, on_iteration=on_iteration)
+    state = result.state
+    check = mesh.replicated(m)
+    for v in state.model.state_dict().values():
+        check(v)
+    peak = torch.cuda.max_memory_allocated(m.device) / 2**20 if cuda else None
+
+    # one more minibatch step: this rank's block of the last window's first
+    # minibatch; warmed up, then profiled on rank 0 (every rank steps: the
+    # collectives meet)
+    batch = learner.flat_batch(windows[-1],
+                               torch.zeros_like(windows[-1].value[0]))
+    block = learner.cfg.minibatch_size // world
+    sel = torch.arange(rank * block, (rank + 1) * block, device=m.device)
+    mb = {k: ({o: x[sel] for o, x in v.items()} if k == "obs" else v[sel])
+          for k, v in batch.items()}
+
+    def step():
+        learner.minibatch_step(state, mb, state.kl_coeff)
+        if cuda:
+            torch.cuda.synchronize()
+
+    step()
+    profiled = None
+    if rank == 0:
+        with profile(activities=[ProfilerActivity.CPU]
+                     + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
+            t0 = time.perf_counter()
+            step()
+            wall = (time.perf_counter() - t0) * 1e3
+        profiled = (*_collectives(prof), wall)
+    else:
+        step()
+    trainer.close()
+    return {"rows": rows, "times": times, "peak_mb": peak,
+            "profiled": profiled, "device": str(m.device)}
+
+
+def phase_train_dp(train, device="cuda"):
+    """[train dp]: ``[train]``'s setup (the flagship, the fixture's
+    weights, the default ``PPOConfig``, seed 0) over ``world`` ranks, each
+    in a ``Trainer(mesh=...)``: ``min(4, device_count)`` ranks over NCCL
+    on a machine with 2 or more cards, else 2 ranks sharing the card over
+    gloo; ``DP_ITERS`` iterations. Iteration 1's ``DP_METRICS`` equal
+    ``[train]``'s (``train``: its results) within rtol 2e-3 and atol 1e-5,
+    the parameters bitwise equal across the ranks after iteration 2, no
+    pool wraps. Returns (world, backend, env-steps/s of all ranks, per
+    card, seconds an iteration)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from placement_tpu_torch.agent.ppo import PPOConfig
+    from placement_tpu_torch.parallel import mesh
+    cards = torch.cuda.device_count() if device == "cuda" else 1
+    world = min(4, cards) if cards >= 2 else 2
+    backend = mesh.backend_for(device, world)
+    used = min(world, cards)
+    print(f"[train dp] {world} ranks over {backend} on {used} card(s)",
+          flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_dp_")
+    try:
+        ranks = mesh.spawn_ranks(
+            _train_dp_rank, world,
+            args=(root, _fixture_variables(), device), backend=backend,
+            timeout=900)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = train[8]
+    got = ranks[0]["rows"][0]
+    errs = {k: abs(got[k] - want[k]) - DP_RTOL * abs(want[k])
+            for k in DP_METRICS}
+    print(f"[train dp] iteration 1 vs [train]'s (world 1): "
+          f"{ {k: (got[k], want[k]) for k in DP_METRICS}!r}; |diff| - "
+          f"rtol * |world 1| {errs!r} (atol {DP_ATOL})", flush=True)
+    _check(all(e <= DP_ATOL for e in errs.values()),
+           "[train dp] iteration 1 differs from world 1")
+    _check(all(row["pool_wraps"] == 0 for res in ranks
+               for row in res["rows"]), "[train dp] pool wraps")
+    drop = "time_total_s"
+    _check(all([{k: v for k, v in r.items() if k != drop}
+                for r in res["rows"]] ==
+               [{k: v for k, v in r.items() if k != drop}
+                for r in ranks[0]["rows"]] for res in ranks),
+           "[train dp] the ranks' metrics differ")
+    n = PPOConfig().train_batch
+    it_s = max(float(np.mean(res["times"]["iteration"][1:]))
+               for res in ranks)
+    for r, res in enumerate(ranks):
+        t = res["times"]
+        print(f"[train dp] rank {r} ({res['device']}): seconds an iteration "
+              f"{t['iteration']!r}; rollout {t['rollout']!r}; update "
+              f"{t['update']!r}; peak memory {res['peak_mb']!r} MB",
+              flush=True)
+    calls, host_ms, dev_ms, launches, busy, wall = ranks[0]["profiled"]
+    rate = n / it_s
+    print(f"[train dp] iteration 2: {it_s!r} s (slowest rank), "
+          f"{rate!r} env-steps/s for all ranks, {rate / used!r} per card; "
+          f"world 1 ([train], iterations 2+): {train[0]!r} s, "
+          f"{n / train[0]!r} env-steps/s; {_card()}", flush=True)
+    print(f"[train dp] one minibatch step on rank 0 (its block of "
+          f"{PPOConfig().minibatch_size // world} rows), profiled: {calls} collectives "
+          f"(c10d::allreduce_), {host_ms!r} ms of host time in them, "
+          f"{dev_ms!r} ms of NCCL kernels on the card, of {wall!r} ms wall "
+          f"(collectives' host share {host_ms / wall!r}); {launches} kernel "
+          f"launches, the card busy {busy!r} ms", flush=True)
+    return world, backend, rate, rate / used, it_s
 
 
 def main():
@@ -1755,6 +1953,8 @@ def main():
     train = phase_train()
     learns = phase_train_learns()
     t_learn = time.perf_counter() - t_learn
+    # the data-parallel learner (parallel/mesh.py): [train] over ranks
+    train_dp = phase_train_dp(train)
     # no one PyTorch call computes a chunk: library_ms is null
     entries = []
     for k, (row, *_, replaces) in KERNELS.items():
@@ -1816,6 +2016,9 @@ def main():
           f"{train[4]!r} Adam steps/s, {train[5]} launches a minibatch step "
           f"(busy share {train[6]!r}), peak {train[7]!r} MB; [train learns] "
           f"first 5 {learns[0]!r}, last 5 {learns[1]!r}")
+    print(f"[train dp] {train_dp[0]} ranks over {train_dp[1]}: "
+          f"{train_dp[2]!r} env-steps/s in all, {train_dp[3]!r} per card, "
+          f"{train_dp[4]!r} s an iteration")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

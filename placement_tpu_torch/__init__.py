@@ -14,7 +14,7 @@ What is ported so far:
   env/gym_api.py        the single-board gym-0.22 adapter
   models/               the ten-preset model zoo, the action
                         distributions, Flax weights -> state_dict
-  agent/policy.py       Policy.act (the acting half)
+  agent/policy.py       Policy.act and Policy.evaluate
   agent/random_policy.py the random-policy baseline
   viz/rollout.py        greedy rollout sampling and its records
   utils/config.py       configs/*.json -> (EnvParams, ModelConfig)
@@ -24,8 +24,14 @@ What is ported so far:
   ops/fused_rollout.py  the fused rollout chunk: plain PyTorch version and
                         the wrapper of the hand-written CUDA kernels
   ops/csrc/             the CUDA kernels, built by ops/_build.py
-  parallel/mesh.py      the fused rollout sharded over ranks
+  agent/ppo.py, agent/trainer.py  PPO and the Trainer (checkpoints,
+                        metrics, profiling, the sampling-fidelity check)
+  env/compat.py, env/fidelity.py  the reference-process generator and the
+                        sampling-fidelity check (NumPy)
+  experiments/ppo.py    the training CLI (data-parallel, multi-process)
+  parallel/mesh.py      the learner and the fused rollout over ranks
   tools/bench_matrix.py the per-configuration throughput matrix
+  tools/train_throughput.py  a PPO iteration's env-steps/s over ranks
   graft_entry.py        the flagship forward step and the sharded dry run
 """
 

@@ -11,7 +11,7 @@ distributions, from a seed) or are carried from the JAX package with
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -76,28 +76,31 @@ class Policy:
 
     @torch.no_grad()
     def act(self, obs: Dict[str, torch.Tensor], gen: torch.Generator,
-            deterministic: bool = False
+            deterministic: bool = False, shard: Optional[D.Shard] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """obs (batched) -> (action i32[B, 3], logp f32[B], value f32[B],
         dist_inputs): the masked logits, or the encoding for factorized
         heads (what PPO stores to rebuild the behaviour distribution,
         RLlib's SampleBatch.ACTION_DIST_INPUTS). ``gen`` draws the
-        samples (unused when ``deterministic``: the argmax)."""
+        samples (unused when ``deterministic``: the argmax); ``shard=(r,
+        n)``: ``obs`` is a rank's block r of n, drawn for at the whole
+        batch's shape (``distributions.cat_sample``)."""
         out = self.model(obs)
         value = out["value"]
         if self.cfg.is_factorized:
             enc = out["encoding"]
             dist = self.factorized_dist(enc, obs["action_mask"])
-            action = dist.sample(gen, deterministic)
+            action = dist.sample(gen, deterministic, shard)
             return action.to(torch.int32), dist.logp(action), value, enc
         logits = out["logits"]
         flat = (D.cat_argmax(logits) if deterministic
-                else D.cat_sample(gen, logits))
+                else D.cat_sample(gen, logits, shard))
         action = decode_flat_action(self.env_params, flat)
         return action, D.cat_logp(logits, flat), value, logits
 
     def evaluate(self, obs: Dict[str, torch.Tensor], actions: torch.Tensor,
-                 behavior_inputs: torch.Tensor, gen: torch.Generator
+                 behavior_inputs: torch.Tensor, gen: torch.Generator,
+                 shard: Optional[D.Shard] = None
                  ) -> Tuple[torch.Tensor, ...]:
         """(logp, entropy, value, kl) of stored transitions under the
         current weights, with gradients (JAX ``agent/policy.py:113-135``).
@@ -110,7 +113,8 @@ class Policy:
         logits, or its encoding under the *current* heads for factorized
         presets, gradients through them as in JAX). A factorized preset's
         entropy and KL are sampled estimates, drawn from ``gen`` in JAX's
-        order: the entropy's draws, then the KL's."""
+        order: the entropy's draws, then the KL's (``shard`` as in
+        ``act``)."""
         self.model.train()
         try:
             out = self.model(obs)
@@ -121,8 +125,8 @@ class Policy:
             dist = self.factorized_dist(out["encoding"], obs["action_mask"])
             prev = self.factorized_dist(behavior_inputs, obs["action_mask"])
             logp = dist.logp(actions)
-            entropy = dist.entropy(gen)
-            return logp, entropy, value, prev.kl(dist, gen)
+            entropy = dist.entropy(gen, shard)
+            return logp, entropy, value, prev.kl(dist, gen, shard)
         logits = out["logits"]
         flat = encode_flat_action(self.env_params, actions)
         return (D.cat_logp(logits, flat), D.cat_entropy(logits), value,

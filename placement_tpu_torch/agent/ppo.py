@@ -15,6 +15,21 @@ Randomness comes from the ``TrainState``'s one ``torch.Generator``, which
 takes the place of JAX's key splits: the pool, the actions, the
 permutations of each epoch and, for factorized presets, the sampled
 entropy and KL, in that order.
+
+Data-parallel (a learner with a ``parallel.mesh.Mesh``, made by
+``shard_learner``), with the JAX semantics: world n computes what world 1
+computes. Every rank advances the common generator as one process would,
+each draw made at the whole batch's shape and the rank's rows kept: the
+pool (drawn whole, the rank's columns taken), the actions and the sampled
+entropy and KL (``shard=(rank, world)``), the permutations (whole). A rank
+steps its ``num_envs / world`` boards and all-reduces the window's sums
+once an iteration; GAE runs per board, then the window is gathered, so
+every rank holds the whole batch and standardises the advantages over it.
+Rank r takes block r of each minibatch's ``world`` equal blocks; the
+batch norms take the global minibatch's statistics
+(``models/blocks.py::sync_batch_norm``), and one flat all-reduce of the
+gradients, averaged, is JAX's ``psum``: the gradient of the global mean.
+The loss metrics are all-reduced once, at the end of the update.
 """
 
 from __future__ import annotations
@@ -27,8 +42,11 @@ import torch
 from placement_tpu_torch.agent.policy import Policy
 from placement_tpu_torch.env import core, pooled
 from placement_tpu_torch.env.pooled import default_pool_size
-from placement_tpu_torch.env.types import EnvParams, EnvState
+from placement_tpu_torch.env.types import STATE_FIELDS, EnvParams, EnvState
+from placement_tpu_torch.models.blocks import sync_batch_norm
 from placement_tpu_torch.models.zoo import init_parameters
+from placement_tpu_torch.parallel.mesh import (
+    Mesh, gather_rows, shard_env_batch)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -117,14 +135,47 @@ class Transition(NamedTuple):
 
 
 class PPOLearner:
-    """PPO over a batched placement env, on the policy's device."""
+    """PPO over a batched placement env, on the policy's device; with a
+    ``mesh``, this rank's share of a data-parallel learner (``shard``)."""
 
     def __init__(self, env_params: EnvParams, policy: Policy,
-                 cfg: PPOConfig = PPOConfig()):
+                 cfg: PPOConfig = PPOConfig(), mesh: Optional[Mesh] = None):
         self.env_params = env_params
         self.policy = policy
         self.cfg = cfg
         self.device = policy.device
+        self.mesh = mesh
+        self.world = 1 if mesh is None else mesh.world
+        # the rank's row block of each draw: None for one rank
+        self._shard = None if self.world == 1 else (mesh.rank, mesh.world)
+        if mesh is not None:
+            # a minibatch longer than the batch is the whole batch
+            for field, n in (("num_envs", cfg.num_envs),
+                             ("minibatch_size", min(cfg.minibatch_size,
+                                                    cfg.train_batch))):
+                if n % mesh.world:
+                    raise ValueError(f"{field} {n} not divisible by "
+                                     f"{mesh.world} ranks")
+            sync_batch_norm(policy.model,
+                            mesh.group if self.world > 1 else None)
+
+    def shard(self, mesh: Mesh) -> "PPOLearner":
+        """This learner over ``mesh`` (``parallel.mesh.shard_learner``): the
+        same policy, whose batch norms now sync over the mesh's ranks."""
+        return PPOLearner(self.env_params, self.policy, self.cfg, mesh)
+
+    def place(self, state: TrainState) -> TrainState:
+        """A freshly initialised single-process ``state`` cut to this rank's
+        boards and episode accumulators (model, optimizer, ``kl_coeff``,
+        generator and ``steps`` stay whole); the state itself without a
+        mesh."""
+        if self.mesh is None:
+            return state
+        rows = self.mesh.rows(self.cfg.num_envs)
+        return dataclasses.replace(
+            state, env_states=shard_env_batch(self.mesh, state.env_states),
+            ep_return_acc=state.ep_return_acc[rows].clone(),
+            ep_len_acc=state.ep_len_acc[rows].clone())
 
     # -- init --------------------------------------------------------------
 
@@ -168,13 +219,19 @@ class PPOLearner:
         the window's sums: ``done``, ``ep_return``, ``ep_len``,
         ``wirelength`` and ``num_intersections`` summed over the finished
         episodes, and ``pool_wraps``, the boards that exhausted the pool
-        and replayed an instance, which must stay 0)."""
+        and replayed an instance, which must stay 0). Over a mesh: this
+        rank's boards, the sums over all ranks."""
         params, cfg, gen = self.env_params, self.cfg, state.gen
         pool_size = (default_pool_size(params, cfg.unroll_length)
                      if cfg.reset_pool_size is None
                      else cfg.reset_pool_size)
         pool = pooled.make_pool(params, gen, pool_size, cfg.num_envs)
-        counts = torch.zeros((cfg.num_envs,), dtype=I32, device=self.device)
+        if self.mesh is not None:
+            rows = self.mesh.rows(cfg.num_envs)
+            pool = EnvState(**{f: getattr(pool, f)[:, rows]
+                               for f in STATE_FIELDS})
+        counts = torch.zeros((state.env_states.batch,), dtype=I32,
+                             device=self.device)
         env_states = state.env_states
         ret_acc, len_acc = state.ep_return_acc, state.ep_len_acc
         steps: List[tuple] = []
@@ -183,7 +240,8 @@ class PPOLearner:
                           "num_intersections")}
         for _ in range(cfg.unroll_length):
             obs = core.observe(params, env_states)
-            action, logp, value, dist_inputs = self.policy.act(obs, gen)
+            action, logp, value, dist_inputs = self.policy.act(
+                obs, gen, shard=self._shard)
             env_states, counts, reward, done, info = \
                 pooled.step_autoreset_pooled(
                     params, env_states, action, pool, counts,
@@ -202,6 +260,11 @@ class PPOLearner:
             ret_acc = torch.where(done, 0.0, ret_total)
             len_acc = torch.where(done, 0, len_total)
         sums["pool_wraps"] = (counts > pool_size).sum()
+        if self.world > 1:                # the iteration's one reduction
+            total = self.mesh.all_reduce(
+                torch.stack([v.to(F32) for v in sums.values()]))
+            sums = {k: t.to(v.dtype)
+                    for (k, v), t in zip(sums.items(), total)}
         obs, action, logp, value, reward, done, dist_inputs = zip(*steps)
         traj = Transition(
             {k: torch.stack([o[k] for o in obs]) for k in obs[0]},
@@ -245,7 +308,7 @@ class PPOLearner:
         BatchNorm statistics."""
         cfg = self.cfg
         logp, entropy, value, kl = self.policy.evaluate(
-            mb["obs"], mb["action"], mb["dist_inputs"], gen)
+            mb["obs"], mb["action"], mb["dist_inputs"], gen, self._shard)
         ratio = torch.exp(logp - mb["logp"])
         adv = mb["advantages"]
         surrogate = torch.minimum(
@@ -274,14 +337,29 @@ class PPOLearner:
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm * max_norm))
 
+    def _average_grads(self, params: List[torch.Tensor]) -> None:
+        """Every gradient replaced by its mean over the ranks: one flat
+        all-reduce, the gradients left as views of its result."""
+        params = [p for p in params if p.grad is not None]
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        self.mesh.all_reduce(flat).div_(self.world)
+        off = 0
+        for p in params:
+            p.grad = flat[off:off + p.numel()].view_as(p)
+            off += p.numel()
+
     def minibatch_step(self, state: TrainState, mb: Dict,
                        kl_coeff: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """One Adam step on the minibatch ``mb``; returns the loss's aux
-        (detached)."""
+        """One Adam step on the minibatch ``mb`` (over a mesh: this rank's
+        block of it, the gradients averaged over the ranks); returns the
+        loss's aux (detached)."""
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss, aux = self._loss(mb, kl_coeff, state.gen)
         loss.backward()
+        if self.world > 1:
+            self._average_grads(
+                [p for g in opt.param_groups for p in g["params"]])
         if self.cfg.grad_clip is not None:
             self._clip_by_global_norm(
                 [p for g in opt.param_groups for p in g["params"]])
@@ -293,22 +371,25 @@ class PPOLearner:
     def flat_batch(self, traj: Transition, last_value: torch.Tensor
                    ) -> Dict:
         """The window as one batch [T * B, ...] with GAE advantages
-        (standardised) and value targets."""
+        (standardised) and value targets. Over a mesh: GAE on this rank's
+        boards, then every rank's window gathered (one collective), so
+        that each rank holds the whole batch in world 1's row order."""
         advantages, value_targets = self._gae(traj, last_value)
-
-        def flat(x):
-            return x.reshape((-1,) + x.shape[2:])
-
-        adv = flat(advantages)
+        window = [*traj.obs.values(), traj.action, traj.logp, traj.value,
+                  traj.dist_inputs, value_targets, advantages]
+        if self.world > 1:                # [T, B / world] -> [T, B]
+            window = gather_rows(self.mesh, window, dim=1)
+        *obs, action, logp, value, dist_inputs, value_targets, adv = [
+            x.reshape((-1,) + x.shape[2:]) for x in window]
         # RLlib standardize_fields=["advantages"], with the *population*
         # std as jnp.std (ddof 0; torch.std defaults to ddof 1)
         adv = (adv - adv.mean()) / torch.clamp_min(
             adv.std(correction=0), 1e-4)
         return {
-            "obs": {k: flat(v) for k, v in traj.obs.items()},
-            "action": flat(traj.action), "logp": flat(traj.logp),
-            "value": flat(traj.value), "dist_inputs": flat(traj.dist_inputs),
-            "advantages": adv, "value_targets": flat(value_targets),
+            "obs": dict(zip(traj.obs, obs)),
+            "action": action, "logp": logp, "value": value,
+            "dist_inputs": dist_inputs, "advantages": adv,
+            "value_targets": value_targets,
         }
 
     def update(self, state: TrainState, traj: Transition,
@@ -322,11 +403,15 @@ class PPOLearner:
         minibatches of it; the remainder is dropped, as in JAX. Returns
         (state, {policy_loss, vf_loss, entropy: means over every
         minibatch; kl: the mean over the *last* epoch (JAX ``:354``), which
-        also drives the coefficient; kl_coeff})."""
+        also drives the coefficient; kl_coeff}). Over a mesh: ``traj`` and
+        ``last_value`` are this rank's boards, ``perms`` the whole batch's,
+        and every rank returns the same metrics."""
         cfg = self.cfg
         batch = self.flat_batch(traj, last_value)
         n = cfg.train_batch
         n_mb = max(n // cfg.minibatch_size, 1)
+        block = min(cfg.minibatch_size, n) // self.world
+        first = 0 if self.mesh is None else self.mesh.rank * block
         kl_coeff = state.kl_coeff
         auxes: List[Dict[str, torch.Tensor]] = []
         for epoch in range(cfg.num_sgd_iter):
@@ -336,11 +421,16 @@ class PPOLearner:
             for i in range(n_mb):
                 sel = perm[i * cfg.minibatch_size:
                            (i + 1) * cfg.minibatch_size]
+                if self.world > 1:        # this rank's block
+                    sel = sel[first:first + block]
                 mb = {k: ({o: x.index_select(0, sel) for o, x in v.items()}
                           if k == "obs" else v.index_select(0, sel))
                       for k, v in batch.items()}
                 auxes.append(self.minibatch_step(state, mb, kl_coeff))
         aux = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+        if self.world > 1:                # the ranks' means of each step
+            total = self.mesh.all_reduce(torch.stack(list(aux.values())))
+            aux = dict(zip(aux, total / self.world))
         # adaptive KL coefficient (RLlib update_kl) on the last epoch's kl
         mean_kl = aux["kl"][-n_mb:].mean()
         kl_coeff = torch.where(

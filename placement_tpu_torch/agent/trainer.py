@@ -14,10 +14,12 @@ PPO_<type>_<ts>/`` with ``progress.csv``, TensorBoard events (where
 TensorBoard is installed), ``params.json`` (the full run config) and
 ``checkpoints/checkpoint_<iter>/``.
 
-Not ported yet, and never skipped silently: the data-parallel ``mesh``
-(the learner half of ``parallel/mesh.py``) raises, and the sampling-
-fidelity check that the JAX trainer runs when ``env_overrides`` touch a
-generation field (``env/fidelity.py``) is reported as not run.
+Data-parallel training (``mesh``, a ``parallel.mesh.Mesh`` of this rank):
+every rank builds the same ``Trainer`` and trains through
+``parallel.mesh.shard_learner``; rank 0 is the main process and alone
+writes ``params.json``, ``progress.csv`` and TensorBoard (the metrics are
+the same on every rank), the others log to a ``NullMetricsLogger``; every
+rank takes part in each checkpoint save, which rank 0 writes.
 """
 
 from __future__ import annotations
@@ -34,27 +36,17 @@ import torch
 from placement_tpu_torch.agent.policy import Policy, model_config_for
 from placement_tpu_torch.agent.ppo import PPOConfig, PPOLearner, TrainState
 from placement_tpu_torch.env import core
+from placement_tpu_torch.env.fidelity import (
+    GENERATION_FIELDS, check_sampling_fidelity)
+from placement_tpu_torch.parallel.mesh import Mesh
 from placement_tpu_torch.utils.checkpoint import (
     CheckpointManager, find_latest_run)
 from placement_tpu_torch.utils.config import MODEL_TYPES, load_experiment
-from placement_tpu_torch.utils.metrics import MetricsLogger
+from placement_tpu_torch.utils.metrics import MetricsLogger, NullMetricsLogger
 
 log = logging.getLogger(__name__)
 
 DEFAULT_RESULTS_ROOT = os.path.expanduser("~/placement_tpu_results")
-
-#: the EnvParams fields the instance generator reads (JAX
-#: ``env/fidelity.py:40-48``): overriding one can move a pin config into a
-#: sampling regime the shipped configs' fidelity evidence does not cover
-GENERATION_FIELDS = frozenset({
-    "variant", "height", "width",
-    "min_component_w", "max_component_w",
-    "min_component_h", "max_component_h",
-    "min_num_components", "max_num_components",
-    "net_distribution", "pin_spread",
-    "min_num_nets", "max_num_nets",
-    "min_num_pins_per_net", "max_num_pins_per_net",
-})
 
 #: the model fields that follow the env's geometry (JAX ``:85-99``)
 _GEOMETRY_FIELDS = ("height", "width", "num_orientations",
@@ -80,7 +72,9 @@ class TrainResult:
 class Trainer:
     """Config-driven PPO training on ``device`` (the card unless the CPU is
     asked for; raises without a card), with checkpoints, metric logging
-    and, given ``profile_dir``, a profiler trace of iterations 2-3."""
+    and, given ``profile_dir``, a profiler trace of iterations 2-3 (rank
+    0's). With a ``mesh``, this rank's part of a data-parallel run on the
+    mesh's device."""
 
     def __init__(self, model_type: str,
                  config_dir: Optional[str] = None,
@@ -92,29 +86,30 @@ class Trainer:
                  checkpoint_freq: int = 1,
                  use_tensorboard: bool = True,
                  run_name: Optional[str] = None,
-                 mesh: Any = None,
+                 mesh: Optional[Mesh] = None,
                  profile_dir: Optional[str] = None,
                  device: core.Device = "cuda"):
         if model_type not in MODEL_TYPES:
             raise KeyError(f"unknown model type {model_type!r}; "
                            f"one of {sorted(MODEL_TYPES)}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): data-parallel training is the learner "
-                "half of parallel/mesh.py, the next slice of the port "
-                "(ROADMAP.md, Queue 1 item 6)")
-        self.device = core.check_device(device, "Trainer")
+        self.device = core.check_device(
+            device if mesh is None else mesh.device, "Trainer")
+        self.mesh = mesh
+        self.is_main_process = mesh is None or mesh.rank == 0
         self.model_type = model_type
         env_params, model_cfg, raw = load_experiment(model_type, config_dir)
         if env_overrides:
             env_params = env_params.replace(**env_overrides).validate()
-            if GENERATION_FIELDS & set(env_overrides):
-                log.warning(
-                    "Trainer(model_type=%r, env_overrides=%s): the "
-                    "sampling-fidelity check of the JAX trainer "
-                    "(env/fidelity.py) is not ported and has not been run "
-                    "on these generation parameters", model_type,
-                    sorted(GENERATION_FIELDS & set(env_overrides)))
+            # user-supplied generation parameters (web-app sliders, API
+            # overrides) can move a pin config into a cap-bound sampling
+            # regime that the shipped configs' evidence does not cover:
+            # measure it and warn (env/fidelity.py), on one rank
+            if (GENERATION_FIELDS & set(env_overrides)
+                    and self.is_main_process):
+                check_sampling_fidelity(
+                    env_params,
+                    context=f"Trainer(model_type={model_type!r}, "
+                            f"env_overrides=...)")
             # re-derive the geometry-coupled model fields so that env
             # overrides cannot desync the model's heads from the env (the
             # reference rebuilds the model from env_config on every run,
@@ -130,6 +125,10 @@ class Trainer:
         self.policy = Policy(env_params, model_cfg, self.device)
         self.ppo_config = ppo_config or PPOConfig()
         self.learner = PPOLearner(env_params, self.policy, self.ppo_config)
+        if mesh is not None:
+            # the learner behind parallel.mesh.shard_learner(learner, mesh),
+            # whose (place, train_step) are its methods
+            self.learner = self.learner.shard(mesh)
 
         self.run_dir = os.path.join(results_root, "PPO",
                                     run_name or _run_name(model_type))
@@ -137,14 +136,17 @@ class Trainer:
         self.checkpoint_dir = os.path.join(self.run_dir, "checkpoints")
         self.ckpt = CheckpointManager(self.checkpoint_dir,
                                       max_to_keep=keep_checkpoints,
-                                      save_interval=checkpoint_freq)
-        self.logger = MetricsLogger(self.run_dir,
-                                    use_tensorboard=use_tensorboard)
+                                      save_interval=checkpoint_freq,
+                                      mesh=mesh)
+        self.logger = (MetricsLogger(self.run_dir,
+                                     use_tensorboard=use_tensorboard)
+                       if self.is_main_process else NullMetricsLogger())
         self._profiler = None
-        if profile_dir:
+        if profile_dir and self.is_main_process:
             from placement_tpu_torch.utils.profiling import trace_iterations
             self._profiler = trace_iterations(profile_dir)
-        self._write_params()
+        if self.is_main_process:
+            self._write_params()
 
     # -- persistence ---------------------------------------------------------
 
@@ -168,16 +170,16 @@ class Trainer:
                    flax_variables: Optional[Mapping] = None) -> TrainState:
         """A fresh state from a generator on the device seeded ``seed``;
         the weights carried from the JAX package's Flax variables (numpy
-        leaves) when given."""
+        leaves) when given. Over a mesh: this rank's rows of it."""
         gen = torch.Generator(self.device).manual_seed(seed)
-        return self.learner.init(gen, flax_variables)
+        return self.learner.place(self.learner.init(gen, flax_variables))
 
     def restore(self, run_dir: Optional[str] = None,
                 step: Optional[int] = None, seed: int = 0) -> TrainState:
         """Restore the newest checkpoint of ``run_dir`` (default: this run's
         directory) into a freshly initialised state."""
         ckpt = self.ckpt if run_dir is None else CheckpointManager(
-            os.path.join(run_dir, "checkpoints"))
+            os.path.join(run_dir, "checkpoints"), mesh=self.mesh)
         return ckpt.restore(self.init_state(seed), step=step)
 
     def run(self, num_iterations: int = 1, seed: int = 0,

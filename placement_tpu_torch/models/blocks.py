@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 from torch import nn
 from torch.nn import functional as F
 
@@ -50,7 +51,14 @@ class BatchNorm(nn.Module):
     ``r <- 0.99 r + 0.01 batch`` with that same biased variance.
     ``nn.BatchNorm*`` would move the running variance by the unbiased one,
     n / (n - 1) larger. ``num_batches_tracked`` stays 0: it exists only so
-    that the state dict keeps PyTorch's keys."""
+    that the state dict keeps PyTorch's keys.
+
+    With a process group (``sync_batch_norm``), train mode takes the
+    statistics of the global batch, as JAX's GSPMD computes them over a
+    sharded batch: the ranks' sums, sums of squares and counts in one
+    stacked, autograd-aware ``all_reduce``, then the same rule.
+    ``nn.SyncBatchNorm`` would move the running variance by the unbiased
+    variance too."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  eps: float = 1e-3):
@@ -63,6 +71,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.int64))
+        self.group = None
 
     def reset_parameters(self) -> None:
         """Flax's initial values: scale 1, bias 0, statistics (0, 1)."""
@@ -78,8 +87,17 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         dims = [d for d in range(x.dim()) if d != 1]
-        mean = x.mean(dim=dims)
-        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        if self.group is None:
+            mean = x.mean(dim=dims)
+            var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        else:
+            count = torch.full_like(self.running_mean,
+                                    x.numel() // x.shape[1])
+            total = dist_nn.all_reduce(
+                torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims), count]),
+                group=self.group)
+            mean = total[0] / total[2]
+            var = torch.clamp_min(total[1] / total[2] - mean * mean, 0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(m).add_((1 - m) * mean)
@@ -89,6 +107,15 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + \
             self.bias.view(shape)
+
+
+def sync_batch_norm(module: nn.Module, group) -> nn.Module:
+    """Every ``BatchNorm`` of ``module`` takes the global batch's
+    statistics over ``group`` in train mode (None: its own batch's)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return module
 
 
 def _same_pad(k: int) -> Tuple[int, int, int, int]:

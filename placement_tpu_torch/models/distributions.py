@@ -21,15 +21,28 @@ from placement_tpu_torch.models.blocks import mask_logits as _mask
 F32 = torch.float32
 I64 = torch.int64
 
+#: ``(r, n)``: a rank's block r of n equal row blocks of a batch
+Shard = Tuple[int, int]
+
 
 # ---------------------------------------------------------------------------
 # Categorical (factorized_action_distributions.py:21-104)
 # ---------------------------------------------------------------------------
 
-def cat_sample(gen: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
-    """One draw per row of ``logits`` [..., A] (Gumbel-max, as
-    ``jax.random.categorical``)."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+def cat_sample(gen: torch.Generator, logits: torch.Tensor,
+               shard: Optional[Shard] = None) -> torch.Tensor:
+    """One draw per row of ``logits`` [B, ..., A] (Gumbel-max, as
+    ``jax.random.categorical``). ``shard=(r, n)``: ``logits`` are block r
+    of n equal row blocks of a batch, and the uniforms are drawn at the
+    whole batch's shape and block r kept, so that n ranks draw what one
+    process draws."""
+    if shard is None:
+        u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    else:
+        r, n = shard
+        b = logits.shape[0]
+        u = torch.rand((n * b,) + logits.shape[1:], generator=gen,
+                       device=logits.device)[r * b:(r + 1) * b]
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(F32).tiny)))
     return torch.argmax(logits + gumbel, dim=-1)
 
@@ -162,12 +175,14 @@ class Factorized:
         oxy = f if self.order == "orientation" else (f[2], f[0], f[1])
         return torch.stack(oxy, dim=-1)
 
-    def sample(self, gen: torch.Generator, deterministic: bool = False
-               ) -> torch.Tensor:
+    def sample(self, gen: torch.Generator, deterministic: bool = False,
+               shard: Optional[Shard] = None) -> torch.Tensor:
         """(o, x, y) i64[B, 3], each factor drawn given the earlier ones
-        (``argmax`` of each when ``deterministic``)."""
+        (``argmax`` of each when ``deterministic``); ``shard`` as in
+        ``cat_sample``, here and below."""
         def pick(lg):
-            return cat_argmax(lg) if deterministic else cat_sample(gen, lg)
+            return (cat_argmax(lg) if deterministic
+                    else cat_sample(gen, lg, shard))
 
         chain = self._chain()
         a = pick(chain()[0])
@@ -180,23 +195,25 @@ class Factorized:
         return sum(cat_logp(lg, v)
                    for lg, v in zip(self._chain()(f[0], f[1]), f))
 
-    def entropy(self, gen: torch.Generator) -> torch.Tensor:
+    def entropy(self, gen: torch.Generator, shard: Optional[Shard] = None
+                ) -> torch.Tensor:
         """Stochastic factor-sum entropy: later factors condition on a fresh
         sample of the earlier ones, as in the reference (:233-254)."""
         chain = self._chain()
         first = chain()[0]
-        a = cat_sample(gen, first)
+        a = cat_sample(gen, first, shard)
         second = chain(a)[1]
-        third = chain(a, cat_sample(gen, second))[2]
+        third = chain(a, cat_sample(gen, second, shard))[2]
         return cat_entropy(first) + cat_entropy(second) + cat_entropy(third)
 
-    def kl(self, other: "Factorized", gen: torch.Generator) -> torch.Tensor:
+    def kl(self, other: "Factorized", gen: torch.Generator,
+           shard: Optional[Shard] = None) -> torch.Tensor:
         """Stochastic factor-sum KL (:257-283): both distributions' factors
         at the same samples of this one's earlier factors."""
         chain, o_chain = self._chain(), self._chain(other)
         first = chain()[0]
-        a = cat_sample(gen, first)
+        a = cat_sample(gen, first, shard)
         second = chain(a)[1]
-        b = cat_sample(gen, second)
+        b = cat_sample(gen, second, shard)
         return (cat_kl(first, o_chain()[0]) + cat_kl(second, o_chain(a)[1])
                 + cat_kl(chain(a, b)[2], o_chain(a, b)[2]))

@@ -696,3 +696,76 @@ def test_cuda_train_step_never_waits_for_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def _card_update_rank(rank, world, kw, traj, last_value, perms,
+                      device="cuda"):
+    """One rank of a sharded ``update`` on the card (a ``spawn_ranks``
+    worker), TF32 off: the carried flagship fed this rank's boards of the
+    window and the whole batch's permutations."""
+    from placement_tpu_torch.agent.ppo import PPOConfig, PPOLearner
+    from placement_tpu_torch.agent.ppo import Transition
+    from placement_tpu_torch.models import convert
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.rank_device(rank, device)
+    params, policy, _, data = _flagship_policy(dev)
+    variables = convert.unflatten({k[4:]: v for k, v in data.items()
+                                   if k.startswith("var/")})
+    learner = PPOLearner(params, policy, PPOConfig(**kw)).shard(
+        mesh.make_mesh(world, dev))
+    state = learner.place(learner.init(torch.Generator(dev).manual_seed(0),
+                                       variables))
+    rows = learner.mesh.rows(last_value.shape[0])
+    t = {k: ({o: x[:, rows].to(dev) for o, x in v.items()} if k == "obs"
+             else v[:, rows].to(dev)) for k, v in traj.items()}
+    state, metrics = learner.update(state, Transition(**t),
+                                    last_value[rows].to(dev), perms)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "vars": convert.to_flax(state.model.state_dict())}
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_update_on_a_shared_card_matches_world_one(cuda):
+    """Two ranks over gloo (sharing the card on a machine with one), each
+    fed its boards of a CPU rollout of the carried flagship and
+    the same permutations, against world 1's ``update`` on the card, TF32
+    off: metrics within 1e-4 relative, parameters within 1e-4 (the biases
+    that feed a batch norm within 2 * lr a step), both ranks equal."""
+    import numpy as np
+    from placement_tpu_torch.agent.ppo import PPOConfig, PPOLearner
+    from placement_tpu_torch.models import convert
+    params, card, _, data = _flagship_policy(cuda)
+    _, cpu, _, _ = _flagship_policy("cpu")
+    variables = convert.unflatten({k[4:]: v for k, v in data.items()
+                                   if k.startswith("var/")})
+    kw = dict(num_envs=128, unroll_length=4, num_sgd_iter=2)
+    cfg = PPOConfig(**kw)
+    c_learner = PPOLearner(params, cpu, cfg)
+    _, traj, last_value, _ = c_learner.rollout(
+        c_learner.init(torch.Generator().manual_seed(0), variables))
+    perm_gen = torch.Generator().manual_seed(1)
+    perms = [torch.randperm(cfg.train_batch, generator=perm_gen)
+             for _ in range(cfg.num_sgd_iter)]
+    g_learner = PPOLearner(params, card, cfg)
+    g_state = g_learner.init(torch.Generator(cuda).manual_seed(0), variables)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        _, want = g_learner.update(g_state, traj.to(cuda),
+                                   last_value.to(cuda), perms)
+    w_sd = convert.to_flax(card.model.state_dict())
+    ranks = mesh.spawn_ranks(
+        _card_update_rank, 2, args=(kw, traj._asdict(), last_value, perms),
+        backend="gloo")
+    noise = convert.norm_fed_biases(w_sd)
+    steps = cfg.num_sgd_iter * cfg.train_batch // cfg.minibatch_size
+    for res in ranks:
+        for k in want:
+            _close_to_scale(torch.tensor(res["metrics"][k]), want[k], 1e-4,
+                            1e-6, k)
+        for k in w_sd:
+            tol = 2 * cfg.lr * steps if k in noise else 1e-4
+            err = float(np.abs(res["vars"][k] - w_sd[k]).max())
+            assert err <= tol, (k, err)
+    assert ranks[0]["metrics"] == ranks[1]["metrics"]
+    for k in w_sd:
+        np.testing.assert_array_equal(ranks[0]["vars"][k],
+                                      ranks[1]["vars"][k])

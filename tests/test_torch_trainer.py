@@ -18,6 +18,7 @@ import glob
 import json
 import logging
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -28,8 +29,10 @@ from placement_tpu.agent.trainer import Trainer as JaxTrainer
 from placement_tpu.viz.rollout import load_pickle as jax_load_pickle
 from placement_tpu_torch.agent.ppo import PPOConfig
 from placement_tpu_torch.agent.trainer import Trainer, latest_run_dir
+from placement_tpu_torch.env import fidelity
 from placement_tpu_torch.env.types import STATE_FIELDS
 from placement_tpu_torch.experiments import ppo as cli
+from placement_tpu_torch.parallel.mesh import make_mesh
 from placement_tpu_torch.utils import profiling
 from placement_tpu_torch.utils.checkpoint import CheckpointManager
 from placement_tpu_torch.utils.metrics import (
@@ -221,18 +224,42 @@ def test_generate_rollouts_load_in_jax(run):
     assert os.path.exists(os.path.join(run_dir, "rectangle_pin.csv"))
 
 
-def test_trainer_env_overrides_rederive_the_model(tmp_path, caplog):
-    with caplog.at_level(logging.WARNING):
+def test_trainer_env_overrides_rederive_the_model(tmp_path, monkeypatch):
+    """An override of generation fields re-derives the model's geometry
+    and runs the ported sampling-fidelity check on the new parameters,
+    which this faithful override passes without a warning."""
+    checked = []
+
+    def report(params, n_samples=512, seed=0):
+        checked.append(params)
+        return real(params, n_samples, seed)
+
+    real = fidelity.deviation_report
+    monkeypatch.setattr(fidelity, "deviation_report", report)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
         trainer = _trainer(tmp_path, name="override",
                            env_overrides={"height": 8, "width": 8})
     trainer.close()
     assert trainer.model_cfg.height == 8 and trainer.model_cfg.width == 8
-    assert "not ported and has not been run" in caplog.text
+    assert [(p.height, p.width) for p in checked] == [(8, 8)]
+    assert checked[0] == trainer.env_params
 
 
 def test_trainer_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        _trainer(tmp_path, mesh=object())
+    """``Trainer(mesh=...)`` trains: a mesh of one process is the
+    single-process trainer, bit for bit (the sharded worlds are
+    tests/test_torch_mesh_learner.py's)."""
+    plain = _trainer(tmp_path, name="plain")
+    want = plain.run(num_iterations=1, seed=5).final_metrics
+    plain.close()
+    meshed = _trainer(tmp_path, name="meshed", mesh=make_mesh(1, "cpu"))
+    assert meshed.is_main_process and meshed.learner.mesh.world == 1
+    got = meshed.run(num_iterations=1, seed=5).final_metrics
+    meshed.close()
+    drop = {"time_total_s"}
+    assert {k: v for k, v in got.items() if k not in drop} == {
+        k: v for k, v in want.items() if k not in drop}
 
 
 def test_cli_trains_two_iterations_on_the_cpu(tmp_path, capsys):
