@@ -31,7 +31,11 @@ entry points a user calls:
     its carried Flax weights with RLlib's PPO defaults (``Policy.evaluate``,
     ``agent/ppo.py``), checkpointed, restored and continued, its rollouts
     exported; PPO learning the tiny square env; and the same training
-    data-parallel over ranks (``Trainer(mesh=...)``).
+    data-parallel over ranks (``Trainer(mesh=...)``);
+  * the tooling around the package: the model zoo's repaired conv
+    settings, the random-policy runners, the three profilers
+    (``tools/{train_profile,pooled_profile,price_exact_sampling}``) and
+    the web app's data layer over the trained run.
 
 Phases (any failure raises and the exit code is not 0):
   1. device  — requires CUDA; prints the card and its power limit
@@ -125,6 +129,25 @@ Phases (any failure raises and the exit code is not 0):
      each rank, env-steps/s in all and per card against [train]'s, the
      collectives of one minibatch step (``torch.profiler``, rank 0), peak
      memory a rank
+ 22. [zoo edges]: the model zoo's two repaired settings
+     (tests/fixtures/torch_zoo_edges.npz: Flax weights, 64 JAX
+     observations, JAX's outputs): the flagship with 3 conv blocks of
+     kernel 5 (the grid encoder's map empties) and the spatial preset with
+     a max-pooled component grid; eval logits and value within 1e-4
+     relative of the CPU's, one train-mode ``evaluate``: finite outputs,
+     NaN statistics exactly where the CPU has them
+ 23. [runners]: the three random-policy runners' ``run()`` at 1024
+     episodes (square, rectangular, pin, pin --spatial), each mean return
+     within 4 combined standard errors of JAX's; env-steps/s
+ 24. [profiles]: ``tools/train_profile`` (flagship, 1 / 10 / 30 epochs,
+     the rollout's pieces, one minibatch step profiled),
+     ``tools/pooled_profile`` (the web app's maximum, 4096 boards, pool 4)
+     and ``tools/price_exact_sampling`` (flagship and web-app maximum, 1024
+     boards), each at the JAX tool's sizes, writing its JSON (the card's
+     name and power limit, ``reduced``) into a temporary directory
+ 25. [webapp]: ``webapp/data.py``'s ``list_runs``, ``load_run`` and
+     ``comparison_curves`` over [train]'s run: its iterations, last mean
+     return and every logged value of the curves
 
 Every timed window follows at least ``WARM_S`` seconds of chained launches:
 a card fresh from idle runs its first ~50 ms slower while its clock ramps.
@@ -137,6 +160,7 @@ import hashlib
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import time
 
@@ -1198,22 +1222,12 @@ def _profiled(fn):
     """(result, kernel launches, device busy ms, wall ms) of ``fn()`` run
     once under ``torch.profiler``, the card idle before and after; the
     launches and busy time are None when the profiler records no device
-    events."""
+    events (``tools/_timing.py::profile_once``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        return out, None, None, wall
-    return out, len(kernels), sum(e.device_time_total
-                                  for e in kernels) / 1e3, wall
+    from placement_tpu_torch.tools._timing import profile_once
+    out = []
+    prof = profile_once(lambda: out.append(fn()), torch.device("cuda"))
+    return out[0], prof["launches"], prof["device_busy_ms"], prof["wall_ms"]
 
 
 def _policy_step_breakdown(params, policy, gen):
@@ -1519,11 +1533,11 @@ def phase_train(device="cuda"):
     restore and ``TRAIN_MORE`` more; then ``generate_rollouts``. Returns
     (seconds an iteration, rollout s, update s, env-steps/s, Adam
     steps/s, launches and busy share of a minibatch step, peak MB,
-    iteration 1's metrics row)."""
+    iteration 1's metrics row, the temporary results root, which the
+    caller removes, the run dir, every iteration's logged row)."""
     import csv
     import math
     import os
-    import shutil
     import tempfile
     import numpy as np
     import torch
@@ -1549,7 +1563,7 @@ def phase_train(device="cuda"):
 
     learner.rollout = rollout_kept
     learner.update = _timed(times, "update", learner.update, device)
-    rows = []
+    rows, logged = [], []
     t_last = [time.perf_counter()]
 
     def on_iteration(it, row):
@@ -1557,6 +1571,7 @@ def phase_train(device="cuda"):
         times["iteration"].append(now - t_last[0])
         t_last[0] = now
         rows.append((it, row))
+        logged.append(dict(row))
 
     state = trainer.init_state(0, flax_variables=variables)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
@@ -1628,7 +1643,6 @@ def phase_train(device="cuda"):
     _, launches, busy, wall = _profiled(lambda: learner.minibatch_step(
         result.state, mb, result.state.kl_coeff))
     trainer.close()
-    shutil.rmtree(root)
 
     it_s = float(np.mean(times["iteration"][1:]))
     roll_s = float(np.mean(times["rollout"][1:]))
@@ -1651,7 +1665,8 @@ def phase_train(device="cuda"):
               f"launches, device busy {busy!r} ms of {wall!r} ms wall (busy "
               f"share {busy / wall!r})", flush=True)
     return it_s, roll_s, upd_s, n / roll_s, steps / upd_s, launches, \
-        (busy / wall if launches else None), peak, first_row
+        (busy / wall if launches else None), peak, first_row, root, \
+        result.run_dir, logged
 
 
 def phase_train_learns(device="cuda"):
@@ -1862,6 +1877,270 @@ def phase_train_dp(train, device="cuda"):
     return world, backend, rate, rate / used, it_s
 
 
+# ---------------------------------------------------------------------------
+# The model zoo's repaired settings, the runners, the profilers, the web app
+# ---------------------------------------------------------------------------
+
+#: Flax init variables, 64 JAX observations and JAX's outputs of the zoo's
+#: two repaired settings (recorded by ``PYTHONPATH=. JAX_PLATFORMS=cpu
+#: python tests/test_torch_zoo_component_grid.py``)
+ZOO_FIXTURE = FIXTURES / "torch_zoo_edges.npz"
+#: the random-policy runners at 1024 episodes: (module, flags, the
+#: ``STEPPER_FIXTURE`` config those flags give)
+RUNNER_EPISODES = 1024
+RUNNERS = (
+    ("run_policy_square", [], "square"),
+    ("run_policy_rectangular", [], "rectangle"),
+    ("run_policy_rectangular_pin", [], "varpin_web"),
+    ("run_policy_rectangular_pin",
+     ["--spatial", "--min_num_pins_per_net", "6", "--weight_wirelength",
+      "0.75", "--weight_num_intersections", "0.25"],
+     "rectangle_spatial_pin"),
+)
+#: the profilers' flags in this run: every size the JAX tool's default, a
+#: short timing window each
+TRAIN_PROFILE_ARGS = ["--components", "--budget-s", "1"]
+POOLED_PROFILE_ARGS = ["--budget-s", "2"]
+PRICE_ARGS = ["--budget-s", "2"]
+
+
+def _zoo_policy(data, name, device):
+    """(policy, observations) of the fixture's setting ``name`` on
+    ``device``, its Flax weights carried in through ``Policy``."""
+    import dataclasses
+    import torch
+    from placement_tpu_torch.agent.policy import Policy
+    from placement_tpu_torch.models import convert
+    from placement_tpu_torch.utils.config import load_experiment
+    model_type, overrides = json.loads(str(data["meta"]))[name]
+    params, cfg, _ = load_experiment(model_type)
+    n = len(name) + 5
+    variables = convert.unflatten({k[n:]: v for k, v in data.items()
+                                   if k.startswith(f"{name}/var/")})
+    policy = Policy(params, dataclasses.replace(cfg, **overrides),
+                    device).load_flax(variables)
+    obs = {k[n:]: torch.as_tensor(v, device=device)
+           for k, v in data.items() if k.startswith(f"{name}/obs/")}
+    return policy, obs
+
+
+def phase_zoo_edges(device="cuda"):
+    """[zoo edges]: the zoo's two repaired settings on the card, from the
+    fixture's Flax weights: the flagship with 3 conv blocks of kernel 5
+    (the grid encoder's map empties) and the spatial preset with a
+    max-pooled component grid (its width from the env's component sides).
+    Eval logits and value within ``POLICY_RTOL`` of the same model on the
+    CPU (TF32 off, ``phase_device``); one train-mode ``evaluate`` (the
+    greedy actions, the CPU's logits as the behaviour): its outputs finite
+    and within ``POLICY_RTOL`` of the CPU's, its batch statistics NaN
+    exactly where the CPU's are and the others within ``POLICY_RTOL``.
+    Returns the worst relative error."""
+    import numpy as np
+    import torch
+    from placement_tpu_torch.models import convert
+    data = dict(np.load(ZOO_FIXTURE))
+    worst = 0.0
+    for name, (model_type, overrides) in json.loads(
+            str(data["meta"])).items():
+        card, obs = _zoo_policy(data, name, device)
+        cpu, cpu_obs = _zoo_policy(data, name, "cpu")
+        with torch.no_grad():
+            got, want = card.model(obs), cpu.model(cpu_obs)
+        eval_err = max(_rel_err(got[k].cpu(), want[k])
+                       for k in ("logits", "value"))
+        jax_err = max(_rel_err(want[k], data[f"{name}/{k}"])
+                      for k in ("logits", "value"))
+        act = cpu.act(cpu_obs, torch.Generator(), deterministic=True)[0]
+        out = card.evaluate(obs, act.to(device), want["logits"].to(device),
+                            torch.Generator(device))
+        ref = cpu.evaluate(cpu_obs, act, want["logits"], torch.Generator())
+        _check(all(bool(torch.isfinite(t).all()) for t in out),
+               f"[zoo edges] {name}: a train-mode output is not finite")
+        train_err = max(_rel_err(g.detach().cpu(), w.detach())
+                        for g, w in zip(out, ref))
+        g_sd = convert.to_flax(card.model.state_dict())
+        w_sd = convert.to_flax(cpu.model.state_dict())
+        nan, stats_err = [], 0.0
+        for k in sorted(k for k in w_sd if k.startswith("batch_stats/")):
+            _check(np.array_equal(np.isnan(g_sd[k]), np.isnan(w_sd[k])),
+                   f"[zoo edges] {name}: NaN statistics differ at {k}")
+            if np.isnan(w_sd[k]).all():
+                nan.append(k[len("batch_stats/"):])
+            finite = ~np.isnan(w_sd[k])
+            if finite.any():
+                stats_err = max(stats_err, _rel_err(g_sd[k][finite],
+                                                    w_sd[k][finite]))
+        heads = {n: tuple(m.weight.shape) for n, m in
+                 card.model.named_children() if n in ("logits_head",)}
+        print(f"[zoo edges] {name} ({model_type}, {overrides}): heads "
+              f"{heads}, {len(obs['grid'])} boards: eval card vs CPU rel "
+              f"err {eval_err!r} (CPU vs JAX {jax_err!r}); train-mode "
+              f"evaluate outputs finite, rel err {train_err!r}; statistics "
+              f"NaN where the CPU's are ({nan or 'none'}), the others rel "
+              f"err {stats_err!r} (tolerance {POLICY_RTOL}, TF32 off)",
+              flush=True)
+        _check(max(eval_err, train_err, stats_err) <= POLICY_RTOL
+               and jax_err <= POLICY_RTOL,
+               f"[zoo edges] {name}: card != CPU")
+        _check((name == "flagship_empty") == bool(nan),
+               f"[zoo edges] {name}: NaN statistics {nan}")
+        worst = max(worst, eval_err, train_err, stats_err)
+    return worst
+
+
+def phase_runners(device="cuda"):
+    """[runners]: each random-policy runner's ``run()`` on ``device`` with
+    ``RUNNER_EPISODES`` episodes (its other flags at their defaults, or
+    those of a fixture config): the flags give the fixture's config, the
+    mean return sits within ``STEPPER_SE`` combined standard errors of JAX
+    ``simulate``'s; env-steps/s = boards x steps / seconds (the card synced
+    by the read of the returns). Returns {config: env-steps/s}."""
+    import importlib
+    import math
+    import torch
+    rates = {}
+    cuda = torch.device(device).type == "cuda"
+    for module, flags, config in RUNNERS:
+        mod = importlib.import_module(
+            f"placement_tpu_torch.experiments.random_policy.{module}")
+        args = mod.parser().parse_args(
+            flags + ["--n_episodes", str(RUNNER_EPISODES)]
+            + ([] if cuda else ["--device", device]))
+        params, want = _stepper_params(config)
+        _check(mod.params_from(args) == params,
+               f"[runners] {module} {flags}: not the {config} config")
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        returns = mod.run(args)
+        dt = time.perf_counter() - t0
+        _check(tuple(returns.shape) == (RUNNER_EPISODES,)
+               and returns.device.type == torch.device(device).type
+               and bool(torch.isfinite(returns).all()),
+               f"[runners] {module}: returns")
+        r = returns.double()
+        mean, se = float(r.mean()), float(r.std() / RUNNER_EPISODES ** 0.5)
+        both = math.hypot(se, want["se"])
+        boards = min(RUNNER_EPISODES, 256)       # simulate's default batch
+        rates[config] = boards * (params.area + 2) / dt
+        print(f"[runners] {module} {' '.join(flags)} ({config}): mean "
+              f"return {mean!r} (se {se!r}) vs JAX {want['mean']!r} (se "
+              f"{want['se']!r}): {(mean - want['mean']) / both!r} combined "
+              f"se; {dt!r} s, {rates[config]!r} env-steps/s ({boards} "
+              f"boards x {params.area + 2} steps); "
+              f"{_card() if cuda else device}", flush=True)
+        _check(abs(mean - want["mean"]) <= STEPPER_SE * both,
+               f"[runners] {module}: mean return")
+    return rates
+
+
+def phase_profiles(device="cuda"):
+    """[profiles]: ``tools/train_profile`` (the flagship, 1 / 10 / 30
+    epochs, with the rollout's pieces), ``tools/pooled_profile`` (the web
+    app's maximum) and ``tools/price_exact_sampling`` (the flagship and
+    the web app's maximum) on the card, each writing its JSON into a
+    temporary directory: every number finite, the card's name and power
+    limit and the ``reduced`` list in each. Returns the three results."""
+    import math
+    import tempfile
+    from placement_tpu_torch.tools import (
+        pooled_profile, price_exact_sampling, train_profile)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profiles_")
+    card = _card() if device == "cuda" else None
+    out = {}
+    try:
+        for name, module, argv in (
+                ("train_profile", train_profile, TRAIN_PROFILE_ARGS),
+                ("pooled_profile", pooled_profile, POOLED_PROFILE_ARGS),
+                ("price_exact_sampling", price_exact_sampling, PRICE_ARGS)):
+            t0 = time.perf_counter()
+            path = pathlib.Path(tmp, f"{name}.json")
+            result = module.main(argv + ["--out", str(path), "--device",
+                                         device])
+            _check(json.loads(path.read_text()) == json.loads(
+                json.dumps(result)), f"[profiles] {name}: its JSON file")
+            _check(result.get("card") == card and "reduced" in result,
+                   f"[profiles] {name}: card {result.get('card')!r}")
+            stack = [result]
+            while stack:
+                node = stack.pop()
+                for v in node.values():
+                    if isinstance(v, dict):
+                        stack.append(v)
+                    elif isinstance(v, float):
+                        _check(math.isfinite(v), f"[profiles] {name}: "
+                                                 "a number is not finite")
+            out[name] = result
+            seconds = time.perf_counter() - t0
+            print(f"[profiles] {name} {' '.join(argv)}: {seconds!r} s",
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tp, pp, pe = (out["train_profile"]["phases"], out["pooled_profile"],
+                  out["price_exact_sampling"]["configs"])
+    mb = out["train_profile"]["minibatch_step"]
+    print(f"[profiles] train_profile: rollout+GAE {tp['rollout_gae_ms']!r} "
+          f"ms (observe {tp['obs_only_ms']!r}, forward "
+          f"{tp['policy_forward_only_ms']!r}, env step "
+          f"{tp['env_step_only_ms']!r} ms a window); train_step sgd 1 / 10 "
+          f"/ 30: {tp['train_step_sgd1_ms']!r} / {tp['train_step_sgd10_ms']!r}"
+          f" / {tp['train_step_sgd30_ms']!r} ms; per epoch "
+          f"{out['train_profile']['derived']['sgd_ms_per_epoch']!r} ms; a "
+          f"minibatch step {mb['launches']} launches, the card busy "
+          f"{mb['device_busy_ms']!r} of {mb['wall_ms']!r} ms; {card}",
+          flush=True)
+    print(f"[profiles] pooled_profile ({pp['batch']} boards, pool "
+          f"{pp['pool_size']}, {pp['inner']} steps): "
+          + "; ".join(f"{k} {v['steady_s_per_call']!r} s a call"
+                      + (f" ({v['steps_per_sec']!r} env-steps/s)"
+                         if "steps_per_sec" in v else
+                         f" ({v['us_per_board']!r} us a board)")
+                      for k, v in pp["phases"].items())
+          + f"; reduced {pp['reduced']}; {card}", flush=True)
+    print("[profiles] price_exact_sampling: " + "; ".join(
+        f"{k} ({v['batch']} boards): generation {v['gen_fast_us_per_board']!r}"
+        f" -> {v['gen_exact_us_per_board']!r} us a board "
+        f"({v['gen_slowdown_x']!r}x), rollout "
+        f"{v['rollout_fast_steps_per_sec']!r} -> "
+        f"{v['rollout_exact_steps_per_sec']!r} env-steps/s "
+        f"({v['rollout_slowdown_x']!r}x)" for k, v in pe.items())
+        + f"; {card}", flush=True)
+    return out
+
+
+def phase_webapp(train):
+    """[webapp]: ``webapp/data.py`` over the results root that ``[train]``
+    wrote: ``list_runs`` finds its one run, ``load_run`` gives it the
+    iterations, the last mean return, the model type and the rollouts that
+    Trainer logged and exported, and ``comparison_curves`` every logged
+    value of the curves' columns."""
+    import os
+    from placement_tpu_torch.webapp.data import (
+        CURVE_COLUMNS, comparison_curves, list_runs, load_run)
+    root, run_dir, logged = train[9], train[10], train[11]
+    runs = list_runs(root)
+    _check([r.path for r in runs] == [run_dir],
+           f"[webapp] runs {[r.path for r in runs]}")
+    run = load_run(run_dir)
+    _check(run.num_iterations == len(logged)
+           and run.final_reward_mean == logged[-1]["episode_reward_mean"]
+           and run.model_type == "rectangle_pin" and run.has_rollouts
+           and run.input_params, f"[webapp] load_run: {run}")
+    curves = comparison_curves([run_dir])[os.path.basename(run_dir)]
+    _check(list(curves["training_iteration"])
+           == [float(i) for i in range(1, len(logged) + 1)],
+           "[webapp] training_iteration")
+    for col in CURVE_COLUMNS:
+        _check(list(curves[col]) == [row[col] for row in logged],
+               f"[webapp] curve {col}")
+    print(f"[webapp] list_runs / load_run / comparison_curves over "
+          f"[train]'s run: {run.name}, {run.num_iterations} iterations, "
+          f"final episode_reward_mean {run.final_reward_mean!r}, rollouts "
+          f"{run.has_rollouts}; the {len(CURVE_COLUMNS)} curves equal the "
+          f"Trainer's logged rows", flush=True)
+    return run.num_iterations
+
+
 def main():
     device_name = phase_device()
     import torch
@@ -1955,6 +2234,17 @@ def main():
     t_learn = time.perf_counter() - t_learn
     # the data-parallel learner (parallel/mesh.py): [train] over ranks
     train_dp = phase_train_dp(train)
+    # the zoo's repaired settings, the runners, the profilers and the web
+    # app's data layer over [train]'s run (no kernel of their own)
+    t_tools = time.perf_counter()
+    try:
+        zoo_err = phase_zoo_edges()
+        runner_rates = phase_runners()
+        profiles = phase_profiles()
+        phase_webapp(train)
+    finally:
+        shutil.rmtree(train[9], ignore_errors=True)
+    t_tools = time.perf_counter() - t_tools
     # no one PyTorch call computes a chunk: library_ms is null
     entries = []
     for k, (row, *_, replaces) in KERNELS.items():
@@ -2019,6 +2309,12 @@ def main():
     print(f"[train dp] {train_dp[0]} ranks over {train_dp[1]}: "
           f"{train_dp[2]!r} env-steps/s in all, {train_dp[3]!r} per card, "
           f"{train_dp[4]!r} s an iteration")
+    slowdown = {k: v["rollout_slowdown_x"] for k, v in
+                profiles["price_exact_sampling"]["configs"].items()}
+    print(f"[tools] {t_tools!r} s for [zoo edges], [runners], [profiles] "
+          f"and [webapp]: zoo card vs CPU worst rel err {zoo_err!r}; "
+          f"runners {runner_rates!r} env-steps/s; exact sampling "
+          f"{slowdown!r} x the rollout's time")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

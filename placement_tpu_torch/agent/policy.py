@@ -54,14 +54,17 @@ class Policy:
         self.env_params = env_params
         self.cfg = cfg
         self.device = core.check_device(device, "Policy")
-        model = build_model(cfg)
+        self.component_hw = (env_params.max_component_h,
+                             env_params.max_component_w)
+        model = build_model(cfg, self.component_hw)
         init_parameters(model, torch.Generator().manual_seed(seed))
         self.model: PlacementModel = model.to(self.device).eval()
 
     def load_flax(self, variables: Mapping) -> "Policy":
         """Carry the JAX package's Flax variables (numpy leaves) into the
         module; a missing, extra or misshapen entry raises."""
-        sd = convert.state_dict_from_flax(variables, self.cfg)
+        sd = convert.state_dict_from_flax(variables, self.cfg,
+                                          self.component_hw)
         self.model.load_state_dict(sd, strict=True)
         return self
 

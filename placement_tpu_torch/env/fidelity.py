@@ -201,9 +201,14 @@ def check_sampling_fidelity(params: EnvParams, *, context: str = "config",
     ``env_overrides``, the web app's sliders) invoke this so no silently
     biased sampling regime is reachable from shipped UIs; the fix is
     ``exact_sampling=True`` (reference-process sampling via sequential
-    per-trial draws, which the port's generator implements too). Its cost
-    on the port's generator is not measured; the warning names the JAX
-    package's measurement on a TPU as that package's.
+    per-trial draws, which the port's generator implements too). The
+    warning quotes its cost on the port as ``python -m
+    placement_tpu_torch.tools.price_exact_sampling`` measured it on an
+    NVIDIA H100 80GB HBM3 (700 W power limit; ``PERF.md`` §5; both modes
+    timed in turns, two runs): instance generation 2.6-2.8x the fast
+    sampler's time a board on the flagship and 5.3-5.5x at the web app's
+    maximum, a 1024-board pooled rollout chunk 0.99-1.06x and 1.13-1.29x
+    its time.
     """
     if not params.has_pins or params.exact_sampling:
         return True
@@ -215,8 +220,10 @@ def check_sampling_fidelity(params: EnvParams, *, context: str = "config",
             f"the reference process (TVD {tvd:.3f} vs sampling-noise floor "
             f"{noise:.3f} over {n_samples} resets). Set exact_sampling=True "
             f"on the environment config to sample with the reference's "
-            f"exact process (the JAX package's measured cost on a TPU: "
-            f"~1.2-1.3x rollout time at training scale, docs/performance.md;"
-            f" the port's is not measured), or widen component "
-            f"areas / reduce pins per net.", UserWarning, stacklevel=3)
+            f"exact process (its cost on the port, measured by python -m "
+            f"placement_tpu_torch.tools.price_exact_sampling on an NVIDIA "
+            f"H100 80GB HBM3 at 700 W: ~1.0-1.3x rollout time at training "
+            f"scale, PERF.md §5), or widen component areas / reduce pins "
+            f"per net.",
+            UserWarning, stacklevel=3)
     return not deviates

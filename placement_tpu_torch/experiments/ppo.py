@@ -28,6 +28,7 @@ Without ``--data-parallel``, a process of a multi-process run is one rank.
 
 import argparse
 import json
+import sys
 
 import torch
 import torch.distributed as dist
@@ -128,9 +129,12 @@ def train_rank(rank: int, world: int, args: argparse.Namespace) -> dict:
         if not args.no_rollouts and "pin" in args.type and main:
             generate_rollouts(trainer, state=result.state)
             print("rollouts exported to", result.run_dir)
-        print(f"{tag}final metrics: "
-              f"{json.dumps(result.final_metrics, sort_keys=True)}",
-              flush=True)
+        # one write of the whole line: the ranks share the parent's pipe,
+        # and print's separate write of the newline lets their lines mix
+        sys.stdout.write(f"{tag}final metrics: "
+                         f"{json.dumps(result.final_metrics, sort_keys=True)}"
+                         "\n")
+        sys.stdout.flush()
         return result.final_metrics
     finally:
         trainer.close()

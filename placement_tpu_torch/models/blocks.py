@@ -152,11 +152,19 @@ class ConvBlocks(nn.Module):
             c = num_filters
         self.out_channels = c
 
+    def _conv_hw(self, h: int, w: int) -> Tuple[int, int]:
+        """Spatial size after one conv: a VALID conv on a map smaller than
+        its kernel gives an empty side (0), as Flax's does."""
+        if self.padding == "SAME":
+            return h, w
+        k = self.kernel_size
+        return max(h - k + 1, 0), max(w - k + 1, 0)
+
     def out_hw(self, h: int, w: int) -> Tuple[int, int]:
-        """Spatial size of the output for an h x w input."""
+        """Spatial size of the output for an h x w input (Flax's shape
+        rule: a side that a conv or pool empties stays 0)."""
         for _ in range(self.num_blocks):
-            if self.padding == "VALID":
-                h, w = h - self.kernel_size + 1, w - self.kernel_size + 1
+            h, w = self._conv_hw(h, w)
             if self.max_pool:
                 h, w = h // self.pool, w // self.pool
         return h, w
@@ -165,16 +173,37 @@ class ConvBlocks(nn.Module):
         if x.dim() == 3:                       # [B, H, W] -> [B, H, W, 1]
             x = x[..., None]
         x = x.permute(0, 3, 1, 2)              # NHWC -> NCHW
+        h, w = x.shape[2], x.shape[3]
         for i in range(self.num_blocks):
-            if self.padding == "SAME":
-                x = F.pad(x, _same_pad(self.kernel_size))
-            x = getattr(self, f"Conv_{i}")(x)
+            conv = getattr(self, f"Conv_{i}")
+            h, w = self._conv_hw(h, w)
+            if h * w == 0:
+                x = _empty_map(x, conv.out_channels, h, w,
+                               conv.weight, conv.bias)
+            else:
+                if self.padding == "SAME":
+                    x = F.pad(x, _same_pad(self.kernel_size))
+                x = conv(x)
             if self.use_batch_norm:
                 x = getattr(self, f"BatchNorm_{i}")(x)
             x = self.act(x)
             if self.max_pool:
-                x = F.max_pool2d(x, self.pool, self.pool)
+                h, w = h // self.pool, w // self.pool
+                x = (_empty_map(x, x.shape[1], h, w) if h * w == 0
+                     else F.max_pool2d(x, self.pool, self.pool))
         return x.permute(0, 2, 3, 1)           # back to NHWC
+
+
+def _empty_map(x: torch.Tensor, channels: int, h: int, w: int,
+               *params: torch.Tensor) -> torch.Tensor:
+    """The empty [B, channels, h, w] map (h * w == 0) that Flax's VALID
+    conv or pool returns on a map smaller than its window; PyTorch's
+    refuse one. A train-mode batch norm of it gives NaN statistics, as
+    Flax's does. It is a function of ``x`` and ``params`` whose value
+    cannot depend on them, so their gradients are 0, as Flax's are, and
+    not None."""
+    tie = x.sum() + sum(p.sum() for p in params)
+    return tie.expand(x.shape[0], channels, h, w)
 
 
 class SelfAttention(nn.Module):

@@ -24,7 +24,7 @@ be held to the JAX package's trees path by path.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -84,11 +84,12 @@ def _convert(collection: str, path: str, v: np.ndarray):
     return f"{key}.{name}", torch.from_numpy(np.array(v, np.float32))
 
 
-def state_dict_from_flax(variables: Tree, cfg: ModelConfig
+def state_dict_from_flax(variables: Tree, cfg: ModelConfig,
+                         component_hw: Optional[Tuple[int, int]] = None
                          ) -> Dict[str, torch.Tensor]:
     """The Flax variables of a ``cfg`` model as the port's ``state_dict``
     (CPU f32 tensors); raises on any key or shape that the port's module
-    does not have."""
+    (``build_model(cfg, component_hw)``) does not have."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise ValueError(f"unknown Flax collections {sorted(unknown)}")
@@ -101,7 +102,7 @@ def state_dict_from_flax(variables: Tree, cfg: ModelConfig
                 sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
                     torch.zeros((), dtype=torch.int64)
     with torch.device("meta"):
-        want = build_model(cfg).state_dict()
+        want = build_model(cfg, component_hw).state_dict()
     missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
     if missing or extra:
         raise ValueError(f"Flax variables do not fit {cfg.model_type!r}: "

@@ -21,7 +21,9 @@ factorized presets return the encoding plus a value, with the per-factor
 heads ``o_logits`` / ``x_logits`` / ``y_logits``.
 
 Flax infers every layer's input width at ``init``; here each width is
-computed from the config. A submodule exists only where its preset uses
+computed from the config, and for the spatial preset's component-grid
+encoder from the env's largest component (``component_hw``), which the
+config does not carry. A submodule exists only where its preset uses
 it, under the Flax module's name, so the carried parameters map one to
 one (``models/convert.py``).
 """
@@ -30,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -110,9 +112,14 @@ def _one_hot(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 class PlacementModel(nn.Module):
-    """One module, ten presets: the encoder is chosen by cfg.model_type."""
+    """One module, ten presets: the encoder is chosen by cfg.model_type.
 
-    def __init__(self, cfg: ModelConfig):
+    ``component_hw`` = (max_component_h, max_component_w) of the env: the
+    sides of the spatial preset's component grid (``Policy`` passes its
+    env's; see ``_component_grid_width``)."""
+
+    def __init__(self, cfg: ModelConfig,
+                 component_hw: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.cfg = cfg
         t = cfg.model_type
@@ -155,7 +162,7 @@ class PlacementModel(nn.Module):
             enc += self._conv_width(self.pin_grid_conv, cfg.height, cfg.width)
             self.component_grid_conv = self._conv(cfg.max_num_nets + 1,
                                                   "_component_grid")
-            token = self._component_grid_width() + 4
+            token = self._component_grid_width(component_hw) + 4
             self.spatial_comp_attn = SelfAttention(
                 token, cfg.component_attn_hidden_size)
             enc += cfg.max_num_components * cfg.component_attn_hidden_size
@@ -183,17 +190,21 @@ class PlacementModel(nn.Module):
                           get("max_pool_kernel_size"), padding=padding,
                           use_batch_norm=cfg.use_batch_norm)
 
-    def _component_grid_width(self) -> int:
-        """Width of one component's encoded grid. The grid is max_h x max_w
-        cells (the env's largest component), which the config carries only
-        as their product: a "SAME" convolution without pooling keeps every
-        cell, as all shipped configs do; other settings would need the two
-        sides and raise."""
+    def _component_grid_width(self, component_hw: Optional[Tuple[int, int]]
+                              ) -> int:
+        """Width of one component's encoded grid, as Flax infers it: the
+        max_h x max_w grid (``component_hw``) through the component-grid
+        encoder's padding and pool. Without ``component_hw`` only a "SAME"
+        encoder without pooling, which keeps every cell, has a width the
+        config fixes (max_num_pins_per_component = max_h * max_w cells, as
+        every shipped config has it); other settings raise."""
         cfg, conv = self.cfg, self.component_grid_conv
+        if component_hw is not None:
+            return self._conv_width(conv, *component_hw)
         if conv.padding != "SAME" or conv.max_pool:
-            raise NotImplementedError(
-                "the component-grid encoder needs SAME padding and no "
-                "max-pool: the config does not carry max_h and max_w")
+            raise ValueError(
+                "the component-grid encoder's width needs the component "
+                "sides: pass component_hw=(max_component_h, max_component_w)")
         return cfg.max_num_pins_per_component * conv.out_channels
 
     @staticmethod
@@ -314,10 +325,12 @@ class PlacementModel(nn.Module):
         return self.y_head(torch.cat([enc, x_norm[..., None]], -1))
 
 
-def build_model(cfg: ModelConfig) -> PlacementModel:
+def build_model(cfg: ModelConfig,
+                component_hw: Optional[Tuple[int, int]] = None
+                ) -> PlacementModel:
     if cfg.model_type not in MODEL_REGISTRY:
         raise KeyError(f"unknown model type {cfg.model_type!r}")
-    return PlacementModel(cfg)
+    return PlacementModel(cfg, component_hw)
 
 
 def init_parameters(model: nn.Module, gen: torch.Generator) -> nn.Module:

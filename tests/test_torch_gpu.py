@@ -769,3 +769,65 @@ def test_cuda_sharded_update_on_a_shared_card_matches_world_one(cuda):
     for k in w_sd:
         np.testing.assert_array_equal(ranks[0]["vars"][k],
                                       ranks[1]["vars"][k])
+
+
+def _zoo_edge_policy(name, device):
+    """The ``torch_zoo_edges.npz`` setting ``name`` on ``device``: its
+    policy with the fixture's Flax weights, and its observations."""
+    import dataclasses
+    import numpy as np
+    from placement_tpu_torch.agent.policy import Policy
+    from placement_tpu_torch.models import convert
+    from placement_tpu_torch.utils.config import load_experiment
+    data = dict(np.load(FIXTURES / "torch_zoo_edges.npz"))
+    model_type, overrides = json.loads(str(data["meta"]))[name]
+    params, cfg, _ = load_experiment(model_type)
+    cfg = dataclasses.replace(cfg, **overrides)
+    n = len(name) + 5
+    variables = convert.unflatten({k[n:]: v for k, v in data.items()
+                                   if k.startswith(f"{name}/var/")})
+    policy = Policy(params, cfg, device).load_flax(variables)
+    obs = {k[n:]: torch.as_tensor(v, device=device) for k, v in data.items()
+           if k.startswith(f"{name}/obs/")}
+    return policy, obs, data
+
+
+@pytest.mark.gpu
+def test_cuda_empty_conv_map_matches_cpu(cuda):
+    """The flagship with 3 blocks of kernel 5 (the grid encoder's map
+    empties), TF32 off: eval logits and value within 1e-4 relative of the
+    CPU's; a train-mode ``evaluate`` leaves NaN statistics exactly where
+    the CPU's are, the others within 1e-4, and finite outputs."""
+    import numpy as np
+    from placement_tpu_torch.models import convert
+    card, obs, data = _zoo_edge_policy("flagship_empty", cuda)
+    cpu, cpu_obs, _ = _zoo_edge_policy("flagship_empty", "cpu")
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
+            torch.no_grad():
+        got = card.model(obs)
+        want = cpu.model(cpu_obs)
+    legal = cpu_obs["action_mask"].reshape(want["logits"].shape) > 0
+    _close_to_scale(got["logits"].cpu()[legal], want["logits"][legal],
+                    1e-4, 1e-6, "logits")
+    _close_to_scale(got["value"], want["value"], 1e-4, 1e-6, "value")
+    act = cpu.act(cpu_obs, torch.Generator(), True)[0]
+    beh = want["logits"]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out = card.evaluate(obs, act.to(cuda), beh.to(cuda),
+                            torch.Generator(cuda))
+    ref = cpu.evaluate(cpu_obs, act, beh, torch.Generator())
+    for name, g, w in zip(("logp", "entropy", "value", "kl"), out, ref):
+        assert bool(torch.isfinite(g).all()), name
+        _close_to_scale(g, w, 1e-4, 1e-6, name)
+    g_sd = convert.to_flax(card.model.state_dict())
+    w_sd = convert.to_flax(cpu.model.state_dict())
+    assert np.isnan(w_sd["batch_stats/grid_conv/BatchNorm_2/mean"]).all()
+    for k in w_sd:
+        if k.startswith("batch_stats/"):
+            np.testing.assert_array_equal(np.isnan(g_sd[k]),
+                                          np.isnan(w_sd[k]), err_msg=k)
+            finite = ~np.isnan(w_sd[k])
+            if finite.any():
+                _close_to_scale(torch.as_tensor(g_sd[k][finite]),
+                                torch.as_tensor(w_sd[k][finite]), 1e-4,
+                                1e-6, k)
