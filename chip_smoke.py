@@ -30,8 +30,10 @@ entry points a user calls:
   * the learner: ``Trainer("rectangle_pin")`` training the flagship from
     its carried Flax weights with RLlib's PPO defaults (``Policy.evaluate``,
     ``agent/ppo.py``), checkpointed, restored and continued, its rollouts
-    exported; PPO learning the tiny square env; and the same training
-    data-parallel over ranks (``Trainer(mesh=...)``);
+    exported; PPO learning the tiny square env; the learning-curve
+    runners' training of the spatial flagship held to JAX's seed band;
+    and the same training data-parallel over ranks
+    (``Trainer(mesh=...)``);
   * the tooling around the package: the model zoo's repaired conv
     settings, the random-policy runners, the three profilers
     (``tools/{train_profile,pooled_profile,price_exact_sampling}``) and
@@ -120,7 +122,15 @@ Phases (any failure raises and the exit code is not 0):
  20. [train learns]: tests/agent/test_ppo.py:174-193 on the card (6x6
      square, 40 iterations): the last 5 beat the first 5 by more than 1.0
      and exceed 7.5
- 21. [train dp]: [train]'s setup over ranks (``parallel/mesh.py``'s
+ 21. [learning curve]: the learning-curve runners' training
+     (``experiments/seed_sweep._train_once``) on the spatial flagship,
+     seed 0, 128 boards x 32 steps, 10 epochs, 30 iterations: the random
+     baseline (512 episodes, seed 1001) within 4 combined standard errors
+     of JAX ``simulate``'s, every reward finite, iterations 10, 20 and 30
+     inside JAX's committed 10-epoch seed band widened by 0.10
+     (experiments/results/rectangle_spatial_pin_seed_sweep_sgd10.csv);
+     seconds an iteration
+ 22. [train dp]: [train]'s setup over ranks (``parallel/mesh.py``'s
      learner half through ``Trainer(mesh=...)``): ``min(4, cards)`` ranks
      over NCCL with 2 or more cards, else 2 ranks sharing the card over
      gloo; 2 iterations: iteration 1's six metrics of JAX's sharded test
@@ -129,23 +139,23 @@ Phases (any failure raises and the exit code is not 0):
      each rank, env-steps/s in all and per card against [train]'s, the
      collectives of one minibatch step (``torch.profiler``, rank 0), peak
      memory a rank
- 22. [zoo edges]: the model zoo's two repaired settings
+ 23. [zoo edges]: the model zoo's two repaired settings
      (tests/fixtures/torch_zoo_edges.npz: Flax weights, 64 JAX
      observations, JAX's outputs): the flagship with 3 conv blocks of
      kernel 5 (the grid encoder's map empties) and the spatial preset with
      a max-pooled component grid; eval logits and value within 1e-4
      relative of the CPU's, one train-mode ``evaluate``: finite outputs,
      NaN statistics exactly where the CPU has them
- 23. [runners]: the three random-policy runners' ``run()`` at 1024
+ 24. [runners]: the three random-policy runners' ``run()`` at 1024
      episodes (square, rectangular, pin, pin --spatial), each mean return
      within 4 combined standard errors of JAX's; env-steps/s
- 24. [profiles]: ``tools/train_profile`` (flagship, 1 / 10 / 30 epochs,
+ 25. [profiles]: ``tools/train_profile`` (flagship, 1 / 10 / 30 epochs,
      the rollout's pieces, one minibatch step profiled),
      ``tools/pooled_profile`` (the web app's maximum, 4096 boards, pool 4)
      and ``tools/price_exact_sampling`` (flagship and web-app maximum, 1024
      boards), each at the JAX tool's sizes, writing its JSON (the card's
      name and power limit, ``reduced``) into a temporary directory
- 25. [webapp]: ``webapp/data.py``'s ``list_runs``, ``load_run`` and
+ 26. [webapp]: ``webapp/data.py``'s ``list_runs``, ``load_run`` and
      ``comparison_curves`` over [train]'s run: its iterations, last mean
      return and every logged value of the curves
 
@@ -1701,6 +1711,88 @@ def phase_train_learns(device="cuda"):
     return first, last
 
 
+#: ``[learning curve]``: the flagship spatial preset, iterations at the
+#: throughput preset's epochs, the iterations held to JAX's seed band
+#: (``experiments/results/rectangle_spatial_pin_seed_sweep_sgd10.csv``, 3
+#: seeds) widened by ``LC_MARGIN`` on each side
+LC_TYPE, LC_ITERS, LC_SGD_ITER = "rectangle_spatial_pin", 30, 10
+LC_CHECKS = (10, 20, 30)
+LC_MARGIN = 0.10
+LC_BAND_CSV = (REPO / "experiments" / "results"
+               / "rectangle_spatial_pin_seed_sweep_sgd10.csv")
+
+
+def _seed_band(path, iterations):
+    """{iteration: (min, max)} of the episode reward over a committed
+    seed sweep's seeds."""
+    import csv
+    per = {}
+    with open(path, newline="") as f:
+        for r in csv.DictReader(f):
+            it = int(r["training_iteration"])
+            if it in iterations:
+                per.setdefault(it, []).append(
+                    float(r["episode_reward_mean"]))
+    return {it: (min(v), max(v)) for it, v in per.items()}
+
+
+def phase_learning_curve(device="cuda"):
+    """[learning curve]: the learning-curve runners' training on
+    ``device``: ``seed_sweep``'s random-policy baseline (512 episodes,
+    generator seed 1001) within ``STEPPER_SE`` combined standard errors of
+    JAX ``simulate``'s (the fixture), then ``seed_sweep._train_once`` on
+    the spatial flagship (seed 0, 128 boards x 32 steps, 10 epochs) for
+    ``LC_ITERS`` iterations: every reward finite, and iterations
+    ``LC_CHECKS`` inside JAX's seed band at 10 epochs, widened by
+    ``LC_MARGIN``. Returns (seconds an iteration, {iteration: reward})."""
+    import math
+    import tempfile
+    import torch
+    from placement_tpu_torch.agent.random_policy import simulate
+    from placement_tpu_torch.experiments import seed_sweep
+    from placement_tpu_torch.utils.config import load_experiment
+    want = json.loads(STEPPER_FIXTURE.read_text())[LC_TYPE]
+    env_params, _, _ = load_experiment(LC_TYPE)
+    ret = simulate(env_params, torch.Generator(device).manual_seed(
+        seed_sweep.BASELINE_SEED), 512, device=device).double()
+    mean, se = float(ret.mean()), float(ret.std() / len(ret) ** 0.5)
+    both = math.hypot(se, want["se"])
+    print(f"[learning curve] random-policy baseline {mean!r} (se {se!r}, "
+          f"{len(ret)} episodes) vs JAX simulate {want['mean']!r} (se "
+          f"{want['se']!r}): {(mean - want['mean']) / both!r} combined se",
+          flush=True)
+    _check(abs(mean - want["mean"]) <= STEPPER_SE * both,
+           "[learning curve] random-policy baseline")
+    band = _seed_band(LC_BAND_CSV, LC_CHECKS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_lc_")
+    try:
+        t0 = time.perf_counter()
+        rows = seed_sweep._train_once(LC_TYPE, LC_ITERS, 0, 128, 32,
+                                      num_sgd_iter=LC_SGD_ITER,
+                                      device=device, results_root=root)
+        dt = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rewards = [r["episode_reward_mean"] for r in rows]
+    _check(len(rewards) == LC_ITERS
+           and all(math.isfinite(x) for x in rewards),
+           "[learning curve] rewards finite, one an iteration")
+    at = {it: rewards[it - 1] for it in LC_CHECKS}
+    card = _card() if torch.device(device).type == "cuda" else device
+    print(f"[learning curve] {LC_TYPE}, seed 0, {LC_SGD_ITER} epochs: "
+          f"{LC_ITERS} iterations in {dt!r} s, {dt / LC_ITERS!r} s an "
+          f"iteration ({card}); "
+          f"reward at {LC_CHECKS}: {[at[it] for it in LC_CHECKS]!r} vs JAX's "
+          f"band {[band[it] for it in LC_CHECKS]!r} +- {LC_MARGIN}; curve "
+          f"{[round(x, 3) for x in rewards]}", flush=True)
+    for it in LC_CHECKS:
+        lo, hi = band[it]
+        _check(lo - LC_MARGIN <= at[it] <= hi + LC_MARGIN,
+               f"[learning curve] iteration {it}: {at[it]!r} outside JAX's "
+               f"band [{lo!r}, {hi!r}] +- {LC_MARGIN}")
+    return dt / LC_ITERS, at
+
+
 #: ``[train dp]``: iterations, and the six metrics JAX's sharded test holds
 #: to the unsharded step (tests/parallel/test_mesh.py:83-88) at its
 #: tolerance
@@ -1843,8 +1935,10 @@ def phase_train_dp(train, device="cuda"):
     print(f"[train dp] iteration 1 vs [train]'s (world 1): "
           f"{ {k: (got[k], want[k]) for k in DP_METRICS}!r}; |diff| - "
           f"rtol * |world 1| {errs!r} (atol {DP_ATOL})", flush=True)
-    _check(all(e <= DP_ATOL for e in errs.values()),
-           "[train dp] iteration 1 differs from world 1")
+    bad = {k: (got[k], want[k]) for k in DP_METRICS
+           if not errs[k] <= DP_ATOL}
+    _check(not bad, f"[train dp] iteration 1 differs from world 1 "
+                    f"(world 2, world 1): {bad!r}")
     _check(all(row["pool_wraps"] == 0 for res in ranks
                for row in res["rows"]), "[train dp] pool wraps")
     drop = "time_total_s"
@@ -2232,6 +2326,8 @@ def main():
     train = phase_train()
     learns = phase_train_learns()
     t_learn = time.perf_counter() - t_learn
+    # the learning-curve runners' training on the spatial flagship
+    curve = phase_learning_curve()
     # the data-parallel learner (parallel/mesh.py): [train] over ranks
     train_dp = phase_train_dp(train)
     # the zoo's repaired settings, the runners, the profilers and the web
@@ -2306,6 +2402,9 @@ def main():
           f"{train[4]!r} Adam steps/s, {train[5]} launches a minibatch step "
           f"(busy share {train[6]!r}), peak {train[7]!r} MB; [train learns] "
           f"first 5 {learns[0]!r}, last 5 {learns[1]!r}")
+    print(f"[learning curve] {curve[0]!r} s an iteration at {LC_SGD_ITER} "
+          f"epochs; reward at iterations {LC_CHECKS}: "
+          f"{[curve[1][it] for it in LC_CHECKS]!r}")
     print(f"[train dp] {train_dp[0]} ranks over {train_dp[1]}: "
           f"{train_dp[2]!r} env-steps/s in all, {train_dp[3]!r} per card, "
           f"{train_dp[4]!r} s an iteration")
