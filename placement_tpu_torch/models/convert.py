@@ -170,3 +170,24 @@ def norm_fed_biases(paths) -> set:
         if norm != head and f"{norm}/scale" in paths:
             out.add(p)
     return out
+
+
+#: the zoo's softmax attentions, by the Flax path of their key projection
+#: (``SelfAttention``'s ``Dense_1``; the pin attention's ``pin_k``)
+_KEY_PROJECTIONS = ("comp_attn/Dense_1", "spatial_comp_attn/Dense_1",
+                    "pin_k")
+
+
+def key_biases(paths) -> set:
+    """Of the Flax paths ``paths``, the biases of the zoo's attention key
+    projections. softmax(q . (k + b)) over the keys equals softmax(q . k):
+    q . b is the same for every key, so the gradient of ``b`` is 0 in
+    exact arithmetic, and what any implementation computes for it is
+    rounding noise, like a norm-fed bias's (``norm_fed_biases``)."""
+    out = set()
+    for p in paths:
+        head, _, leaf = p.rpartition("/")
+        if leaf == "bias" and any(head == k or head.endswith("/" + k)
+                                  for k in _KEY_PROJECTIONS):
+            out.add(p)
+    return out

@@ -331,27 +331,42 @@ def _to_torch(mb):
                 if k == "obs" else torch.as_tensor(v)) for k, v in mb.items()}
 
 
-@pytest.mark.parametrize("case", ["flagship", "factorized"])
+#: every preset of the zoo: the flagship (``rectangle_pin`` at its
+#: published widths on the fixture), ``factorized``
+#: (``rectangle_factorized_pin``) and the others by name
+LOSS_CASES = ["flagship", "factorized"] + [
+    t for t in MODEL_REGISTRY
+    if t not in ("rectangle_pin", "rectangle_factorized_pin")]
+FACTORIZED = ("rectangle_factorized", "rectangle_factorized_pin",
+              "rectangle_pin_all_attn_factorized")
+
+
+@pytest.mark.parametrize("case", LOSS_CASES)
 def test_loss_and_gradients_match_jax(case):
     """``jax.value_and_grad(PPOLearner._loss, has_aux=True)`` on a fixed
     minibatch with the carried parameters: the loss, its aux and every
     gradient within 1e-4 relative or 1e-6 absolute. The flagship runs at
-    its published widths on the fixture's 64 observations; the factorized
-    preset with ``kl_coeff`` = ``entropy_coeff`` = 0, so that its sampled
-    terms stay out of the loss and the gradients."""
+    its published widths on the fixture's 64 observations, every other
+    preset on its small env at 32 boards; the factorized presets with
+    ``kl_coeff`` = ``entropy_coeff`` = 0, so that their sampled terms stay
+    out of the loss and the gradients."""
     if case == "flagship":
         params, jax_cfg, _ = jax_load("rectangle_pin")
         variables, obs, _ = fixture()
         variables = perturbed(variables)
-        kl_coeff, aux_keys = 0.2, ("policy_loss", "vf_loss", "entropy", "kl")
     else:
-        params, jax_cfg, obs, variables = _setup("rectangle_factorized_pin",
-                                                 b=32)
+        model_type = "rectangle_factorized_pin" if case == "factorized" \
+            else case
+        params, jax_cfg, obs, variables = _setup(model_type, b=32)
+    if case == "factorized" or case in FACTORIZED:
         kl_coeff, aux_keys = 0.0, ("policy_loss", "vf_loss")
+    else:
+        kl_coeff, aux_keys = 0.2, ("policy_loss", "vf_loss", "entropy", "kl")
     mb = _minibatch(jax_cfg, params, obs, variables)
     jl, learner = _learners(case, params, jax_cfg)
     (loss, aux), grads = jax.jit(jax.value_and_grad(jl._loss, has_aux=True))(
-        variables["params"], {"batch_stats": variables["batch_stats"]},
+        variables["params"],
+        {k: v for k, v in variables.items() if k != "params"},
         jax.tree_util.tree_map(jnp.asarray, mb), jnp.float32(kl_coeff),
         jax.random.PRNGKey(3))
     learner.policy.load_flax(variables)
@@ -367,7 +382,9 @@ def test_loss_and_gradients_match_jax(case):
     got_grads = convert.flax_grads(learner.policy.model)
     assert set(got_grads) == set(want_grads)
     noise = convert.norm_fed_biases(want_grads)
-    assert noise, "the presets' conv blocks feed batch norms"
+    # a preset with batch norms has conv blocks that feed them;
+    # rectangle_pin_attn_all_no_grid has neither
+    assert bool(noise) == ("batch_stats" in variables), sorted(noise)
     for k in want_grads:
         if k in noise:
             assert max(np.abs(got_grads[k]).max(),
@@ -376,10 +393,46 @@ def test_loss_and_gradients_match_jax(case):
             close_to_scale(got_grads[k], want_grads[k], GRAD_RTOL,
                            GRAD_ATOL, k)
     want_stats = {f"batch_stats/{k}": v for k, v in convert.flatten(
-        jax.device_get(aux["bn_updates"]["batch_stats"])).items()}
+        jax.device_get(aux["bn_updates"].get("batch_stats", {}))).items()}
     got_stats = _stats(learner.policy.model)
+    assert set(got_stats) == set(want_stats)
     for k in want_stats:
         _close(got_stats[k], want_stats[k], BN_RTOL, 1e-7, k)
+
+
+ATTENTION = [t for t in MODEL_REGISTRY if "attn" in t] + [
+    "rectangle_spatial_pin"]
+
+
+@pytest.mark.parametrize("model_type", ATTENTION)
+def test_key_bias_gradients_cancel(model_type):
+    """In f64 the gradient of every attention key projection's bias
+    (``convert.key_biases``) is 0 up to rounding, below 1e-9 of the
+    largest gradient, while every other tensor's gradient that is not a
+    norm-fed bias's is far above that: so ``chip_smoke.py``'s card-to-CPU
+    check holds those biases to a bound on noise, as the norm-fed ones."""
+    params, jax_cfg, obs, variables = _setup(model_type, b=32)
+    mb = _minibatch(jax_cfg, params, obs, variables)
+    _, learner = _learners(model_type, params, jax_cfg)
+    learner.policy.load_flax(variables)
+    learner.policy.model.double()
+    f64 = {k: ({o: x.double() if x.is_floating_point() else x
+                for o, x in v.items()} if k == "obs"
+               else v.double() if v.is_floating_point() else v)
+           for k, v in _to_torch(mb).items()}
+    kl_coeff = 0.0 if model_type in FACTORIZED else 0.2
+    loss, _ = learner._loss(f64, torch.tensor(kl_coeff, dtype=torch.float64),
+                            torch.Generator().manual_seed(3))
+    loss.backward()
+    grads = convert.flax_grads(learner.policy.model)
+    keys = convert.key_biases(grads)
+    assert keys, "every attention preset has a key projection"
+    top = max(np.abs(g).max() for g in grads.values())
+    for k in keys:
+        assert np.abs(grads[k]).max() <= 1e-9 * top, (k, top)
+    rest = set(grads) - keys - convert.norm_fed_biases(grads)
+    assert min(np.abs(grads[k]).max() for k in rest
+               if np.abs(grads[k]).max() > 0) > 1e-6 * top
 
 
 # ---------------------------------------------------------------------------

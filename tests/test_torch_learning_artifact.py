@@ -16,14 +16,26 @@ tolerances below (fixed before the port's runs were made):
       final in the flagship band, the seeds' spread small;
   (c) the intersection-weight sweep, at 10 epochs: JAX's invariants
       (``tests/agent/test_learning_artifact.py``), each weight's final
-      within ``WEIGHT_FINAL_TOL`` of JAX's 30-epoch final.
+      within ``WEIGHT_FINAL_TOL`` of JAX's 30-epoch final;
+  (d) every other preset's curve (``learning_curve --type <preset>
+      --iterations 150 --tag _h100``, 30 epochs, or where that did not fit
+      ``seed_sweep --type <preset> --seeds 0 --skip-weights --num-sgd-iter
+      10 --tag _h100_sgd10``): 150 iterations, the last-10 mean above
+      JAX's baseline + margin (``REGISTRY_CURVES``) and within
+      ``PRESET_GAP`` x JAX's gain of JAX's own 30-epoch last-10 mean
+      (``experiments/results/<preset>_progress.csv``). The presets not run
+      on the card yet are ``PENDING``, as ROADMAP Queue 1 item 6 lists
+      them.
 """
 
 import csv
 import json
 import pathlib
+import re
 
 import pytest
+
+from placement_tpu_torch.models import MODEL_REGISTRY
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "placement_tpu_torch" / "experiments" / "results"
@@ -206,3 +218,87 @@ def test_comparison_json_consistent_with_sweep():
     for w, v in per.items():
         assert abs(finals[w] - _mean(v[-10:])) < 0.02, w
     assert CMP_JSON.with_suffix(".png").stat().st_size > 10_000
+
+
+# --- (d) every other preset --------------------------------------------------
+
+#: JAX's random-policy baseline and margin of each preset
+#: (``tests/agent/test_learning_artifact.py::REGISTRY_CURVES``)
+REGISTRY_CURVES = {
+    "square": (17.6543, 3.0),
+    "rectangle": (6.9922, 1.2),
+    "rectangle_factorized": (6.9922, 1.2),
+    "rectangle_pin": (-1.6536, 0.3),
+    "rectangle_pin_attn_component": (-1.6536, 0.3),
+    "rectangle_pin_attn_all": (-1.6536, 0.3),
+    "rectangle_factorized_pin": (-1.6536, 0.3),
+    "rectangle_pin_all_attn_factorized": (-1.6536, 0.3),
+    "rectangle_pin_attn_all_no_grid": (-1.6536, 0.3),
+}
+#: |port final - JAX final| allowed, a share of JAX's gain over its
+#: baseline
+PRESET_GAP = 0.25
+#: presets with no card curve committed yet (ROADMAP Queue 1 item 6)
+PENDING = ()
+
+
+def _run_files(preset, epochs):
+    """(table, the runner's summary, its plot) of a card run of a preset:
+    ``learning_curve`` at 30 epochs, ``seed_sweep`` at 10."""
+    if epochs == 30:
+        return (PORT / f"{preset}_h100_progress.csv",
+                PORT / f"{preset}_h100_summary.json",
+                PORT / f"{preset}_h100_learning_curve.png")
+    return (PORT / f"{preset}_seed_sweep_h100_sgd10.csv",
+            PORT / f"{preset}_h100_sgd10_summary.json",
+            PORT / f"{preset}_seed_band_h100_sgd10.png")
+
+
+#: every committed card run of a preset other than the spatial flagship:
+#: (preset, epochs)
+PRESET_RUNS = [(t, e) for t in REGISTRY_CURVES for e in (30, 10)
+               if _run_files(t, e)[0].exists()]
+
+
+@pytest.mark.parametrize("preset,epochs", PRESET_RUNS)
+def test_preset_curve_holds_jax(preset, epochs):
+    table = _run_files(preset, epochs)[0]
+    rows = _rows(table)
+    if epochs == 10:
+        assert {r["seed"] for r in rows} == {"0"}, table
+    assert [int(float(r["training_iteration"])) for r in rows] == \
+        list(range(1, 151)), table
+    baseline, margin = REGISTRY_CURVES[preset]
+    got, want = _final(rows), _final(_rows(JAX / f"{preset}_progress.csv"))
+    assert got > baseline + margin, (preset, got, baseline + margin)
+    assert abs(got - want) <= PRESET_GAP * abs(want - baseline), (
+        preset, got, want, PRESET_GAP * abs(want - baseline))
+
+
+@pytest.mark.parametrize("preset,epochs", PRESET_RUNS)
+def test_preset_summary_and_plot(preset, epochs):
+    """The runner's JSON line beside its table: the same final, the card
+    and the layout it ran in; the plot drawn from the table."""
+    table, summary, png = _run_files(preset, epochs)
+    s = json.loads(summary.read_text())
+    final = (s["final_reward_mean_last10"] if epochs == 30
+             else s["final_reward_by_seed"]["0"])
+    assert s["type"] == preset and s["iterations"] == 150
+    assert abs(final - _final(_rows(table))) < 1e-3
+    assert s["runs_per_card"] >= 1 and "H100" in s["card"]
+    assert png.stat().st_size > 10_000
+
+
+def test_registry_curves_cover_the_registry():
+    """Every preset has a committed card curve or is ``PENDING``; the
+    pending ones are those ROADMAP Queue 1 item 6 still lists, each with
+    its command."""
+    assert set(REGISTRY_CURVES) | {TYPE} == set(MODEL_REGISTRY)
+    run = {t for t, _ in PRESET_RUNS}
+    assert run | set(PENDING) == set(REGISTRY_CURVES)
+    assert not run & set(PENDING), run & set(PENDING)
+    text = (REPO / "ROADMAP.md").read_text()
+    item = text[text.index("\n6. "):text.index("\n7. ")]
+    listed = set(re.findall(r"- `(\w+)`: `python -m placement_tpu_torch",
+                            item))
+    assert listed == set(PENDING), (listed, PENDING)

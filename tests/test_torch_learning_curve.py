@@ -10,14 +10,18 @@ reference_comparison}``, ``placement_tpu_torch.tools.plot_learning_curve``).
 * ``--help`` of each runner and of the plot tool through ``python -m``;
   each runner at its default device raises without a card;
 * each runner for 2 iterations at ``--device cpu`` on a tiny batch writes
-  the JAX runner's columns and prints its JSON keys;
-* none of the five modules imports JAX, the JAX package or the top-level
+  the JAX runner's columns and prints its JSON keys; ``learning_curve``
+  on every preset the card trains, a factorized run cut and restored,
+  ``seed_sweep`` on a non-spatial preset;
+* ``tools/learning_runs`` runs two of them at once, each in its process;
+* none of these modules imports JAX, the JAX package or the top-level
   ``experiments/``.
 """
 
 import csv
 import importlib.util
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -28,7 +32,8 @@ import torch
 
 from placement_tpu_torch.experiments import (
     learning_curve, plot_style, reference_comparison, seed_sweep)
-from placement_tpu_torch.tools import plot_learning_curve
+from placement_tpu_torch.models import MODEL_REGISTRY
+from placement_tpu_torch.tools import learning_runs, plot_learning_curve
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RESULTS = REPO / "experiments" / "results"
@@ -41,7 +46,11 @@ MODULES = {
     "reference_comparison": reference_comparison,
 }
 CLIS = ([f"placement_tpu_torch.experiments.{n}" for n in MODULES]
-        + ["placement_tpu_torch.tools.plot_learning_curve"])
+        + ["placement_tpu_torch.tools.plot_learning_curve",
+           "placement_tpu_torch.tools.learning_runs"])
+#: the presets whose curves the card trains one by one: every preset but
+#: the spatial flagship, which (a) covers
+PRESETS = [t for t in MODEL_REGISTRY if t != "rectangle_spatial_pin"]
 #: a 2-iteration run on 8 boards x 8 steps, 2 baseline episodes
 TINY = ["--iterations", "2", "--num-envs", "8", "--unroll-length", "8"]
 #: the keys of the JSON line ``experiments/learning_curve.py`` prints
@@ -263,6 +272,120 @@ def test_learning_curve_cpu_run(tmp_path, capsys):
     assert again["run_dir"] != summary["run_dir"]
 
 
+def _progress_rows(path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+@pytest.mark.parametrize("model_type", PRESETS)
+def test_learning_curve_cpu_run_of_every_preset(model_type, tmp_path):
+    """Each preset trains 2 iterations: its table has the JAX trainer's
+    columns, in order, as JAX's committed run of the preset has them, and
+    finite rewards."""
+    summary = learning_curve.main(
+        TINY + _cpu(tmp_path) + ["--type", model_type,
+                                 "--baseline-episodes", "2", "--tag", "_t"])
+    assert summary["type"] == model_type
+    progress = tmp_path / "out" / f"{model_type}_t_progress.csv"
+    assert _header(progress) == _header(
+        RESULTS / f"{model_type}_progress.csv")
+    rewards = [float(r["episode_reward_mean"])
+               for r in _progress_rows(progress)]
+    assert len(rewards) == 2 and all(map(math.isfinite, rewards)), rewards
+
+
+def test_learning_curve_restores_a_cut_factorized_run(tmp_path):
+    """A factorized preset's run cut after 1 iteration goes on with
+    ``--restore`` to 2: the table holds both rows."""
+    args = ["--num-envs", "8", "--unroll-length", "8", "--type",
+            "rectangle_factorized", "--baseline-episodes", "2", "--tag",
+            "_t"] + _cpu(tmp_path)
+    cut = learning_curve.main(["--iterations", "1"] + args)
+    learning_curve.main(["--iterations", "2", "--restore", cut["run_dir"]]
+                        + args)
+    rows = _progress_rows(tmp_path / "out"
+                          / "rectangle_factorized_t_progress.csv")
+    assert [int(float(r["training_iteration"])) for r in rows] == [1, 2]
+
+
+def test_seed_sweep_cpu_run_of_a_preset(tmp_path):
+    """``seed_sweep --skip-weights`` on a non-spatial preset: the seed
+    table has JAX's columns, one finite row an iteration."""
+    summary = seed_sweep.main(
+        TINY + _cpu(tmp_path) + ["--type", "rectangle_factorized",
+                                 "--seeds", "0", "--skip-weights",
+                                 "--num-sgd-iter", "2",
+                                 "--baseline-episodes", "2", "--tag", "_t"])
+    assert summary["type"] == "rectangle_factorized"
+    path = tmp_path / "out" / "rectangle_factorized_seed_sweep_t.csv"
+    assert _header(path) == _header(RESULTS / SEED_SWEEPS[0])
+    rewards = [float(r["episode_reward_mean"]) for r in _progress_rows(path)]
+    assert len(rewards) == 2 and all(map(math.isfinite, rewards)), rewards
+
+
+def test_learning_runs_share_a_device(tmp_path):
+    """Two runs at once on one device, each in its own process: both end,
+    each summary is its runner's JSON line with the layout beside it."""
+    out = learning_runs.main(
+        ["--types", "square", "rectangle_factorized_pin", "--per-card",
+         "2", "--tag", "_t"] + _cpu(tmp_path)
+        + ["--"] + TINY + ["--baseline-episodes", "2"])
+    assert [r["type"] for r in sorted(out["runs"], key=lambda r: r["type"])
+            ] == ["rectangle_factorized_pin", "square"]
+    for run in out["runs"]:
+        assert run["rc"] == 0 and not run["cut"], run
+        assert run["runs_at_once"] == 2 and run["card"] == "cpu"
+        summary = json.loads((tmp_path / "out" / f"{run['type']}_t_summary"
+                              ".json").read_text())
+        assert CURVE_KEYS <= set(summary) and summary["type"] == run["type"]
+        assert summary["s_per_iteration"] > 0
+    # the figures again from the tables alone, as for a card's run
+    pngs = sorted((tmp_path / "out").glob("*.png"))
+    assert len(pngs) == 2
+    for png in pngs:
+        png.unlink()
+    drawn = learning_runs.main(
+        ["--plot-only", "--types", "square", "rectangle_factorized_pin",
+         "--tag", "_t", "--out-dir", str(tmp_path / "out")])["plots"]
+    assert sorted(map(pathlib.Path, drawn)) == pngs
+    assert all(p.stat().st_size > 10_000 for p in pngs)
+
+
+def test_learning_runs_stop_at_the_deadline_and_resume(tmp_path):
+    """``--deadline-s`` stops a run (no summary); ``--resume`` restores a
+    cut run from its newest checkpoint to the iterations asked, and skips
+    a type whose summary exists."""
+    tool = ["--types", "square", "--tag", "_t"] + _cpu(tmp_path)
+    rest = ["--", "--num-envs", "8", "--unroll-length", "8",
+            "--baseline-episodes", "2"]
+    out = learning_runs.main(tool + ["--deadline-s", "0"] + rest
+                             + ["--iterations", "2"])
+    assert [r["cut"] for r in out["runs"]] == [True]
+    summary = tmp_path / "out" / "square_t_summary.json"
+    assert not summary.exists()
+    # a run cut after its first iteration, where the tool keeps its runs
+    learning_curve.main(["--type", "square", "--iterations", "1", "--tag",
+                         "_t", "--device", "cpu", "--out-dir",
+                         str(tmp_path / "cut"), "--results-root",
+                         str(tmp_path / "runs" / "square_t")] + rest[1:])
+    out = learning_runs.main(tool + ["--resume"] + rest
+                             + ["--iterations", "2"])
+    assert [(r["rc"], r["cut"]) for r in out["runs"]] == [(0, False)]
+    rows = _progress_rows(tmp_path / "out" / "square_t_progress.csv")
+    assert [int(float(r["training_iteration"])) for r in rows] == [1, 2]
+    assert json.loads(summary.read_text())["iterations"] == 2
+    assert learning_runs.main(tool + ["--resume"] + rest)["runs"] == []
+
+
+def test_learning_runs_default_device_needs_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default would run on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        learning_runs.main(["--types", "square", "--out-dir",
+                            str(tmp_path / "o"), "--results-root",
+                            str(tmp_path / "r")])
+
+
 def test_seed_sweep_cpu_run(tmp_path, capsys):
     summary = seed_sweep.main(
         TINY + _cpu(tmp_path) + ["--seeds", "0", "1", "--weights", "0.5",
@@ -365,7 +488,8 @@ def test_runners_import_no_jax():
     the JAX package and nothing of the top-level ``experiments/``."""
     mods = ([f"placement_tpu_torch.experiments.{n}"
              for n in (*MODULES, "plot_style")]
-            + ["placement_tpu_torch.tools.plot_learning_curve"])
+            + ["placement_tpu_torch.tools.plot_learning_curve",
+               "placement_tpu_torch.tools.learning_runs"])
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
