@@ -58,7 +58,14 @@ Phases (any failure raises and the exit code is not 0):
      kernel's after a warm-up of the card, with the host's launches
      enqueued ahead of the card; the centroid, beam and rect kernels'
      times at 1024, 4096 and 16384 boards; each varying-pins config's time
-     under each routing reward
+     under each routing reward; the default instantiations' times and
+     ``ptxas -v`` beside their recorded baseline
+  5b. [envelope]: the general instantiations (up to 24 nets, 48 pins per
+     net, a side over 32 at area <= 144) on the seven edges of the JAX
+     kernel's envelope (tests/fixtures/torch_fused_zero_envelope_*.json):
+     leaf hashes equal to the JAX kernel's at the fixture's size, kernel ==
+     plain at 4096 boards (timed, with its bound), and the matrix tool's
+     fused row on each, its launches equal to its calls
   6. main path 1, timed; the kernel's launch count must equal the calls
   7. main path 2, the matrix; launch counts set to 0 before and read after:
      every specialisation must have launched; the square and rect rows'
@@ -230,6 +237,27 @@ JAX_GOLDENS = {
     **{k: f"torch_fused_zero_b128_{k}.json"
        for k in ("beam", "both", "square", "rect", "spatial", *VARPIN)},
 }
+#: [envelope]: the configurations of the JAX kernel's envelope that only the
+#: general instantiations take (tests/test_torch_fused_envelope.py), each
+#: with its JAX golden (16 boards, block 8, two chained 20-step chunks)
+ENVELOPE_EDGES = ("web_nets10", "nets24_both", "ppn24_beam4", "ppn48_beam2",
+                  "wide_rect", "tall_square", "wide_pin")
+ENVELOPE_BLOCK = 128
+#: the edge whose numbers stand for each general instantiation in the
+#: kernels' line (the others are printed in [envelope]'s lines)
+GENERAL_ROWS = {"centroid": "web_nets10", "beam": "ppn24_beam4",
+                "both": "nets24_both", "square": "tall_square",
+                "rect": "wide_rect"}
+#: the default instantiations as recorded before the general ones were
+#: added (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W): card ms per chunk
+#: by row, and ptxas -v's (registers, stack frame bytes, spill store bytes)
+#: by kernel
+BASELINE_MS = {"pin_centroid": 0.32659, "pin_beam": 0.52797,
+           "pin_both": 0.66411, "square": 0.06706, "rect": 0.10307,
+           "varpin_web": 0.39399}
+BASELINE_PTXAS = {"centroid": (64, 40, 0), "beam": (64, 48, 4),
+              "both": (64, 56, 12), "square": (40, 0, 0),
+              "rect": (40, 0, 0)}
 #: main path 3's ranks: chained seeds
 RANK_SEEDS = (1, 2)
 #: the kernels (one warp per board; 8 boards per CUDA block, the reduced
@@ -319,20 +347,37 @@ def _card():
 
 
 def phase_build():
+    """Builds the kernels; prints ``ptxas -v`` of every instantiation and
+    the default ones' (registers, stack frame, spill stores) beside their
+    recorded baseline (``BASELINE_PTXAS``)."""
     from placement_tpu_torch.ops import _build, fused_rollout
     lib, seconds = _build.build()
     fused_rollout.kernel_library()
     print(f"[build] {lib.name}: {seconds:.1f} s of nvcc")
     log = lib.with_suffix(".log")
-    label = "?"
+    label, kernel, usage = "?", None, {}
     for line in (log.read_text().splitlines() if log.exists() else []):
         m = re.search(r"Compiling entry function '.*fused_rollout_"
-                      r"(warp|reduced)_kernelILi(\d)E", line)
+                      r"(warp|reduced)_kernelILi(\d)ELb([01])E", line)
         if m:
-            label = (f"{fused_rollout.KERNELS[int(m.group(2))]} "
-                     f"(fused_rollout_{m.group(1)}_kernel)")
+            kernel = (fused_rollout.KERNELS[int(m.group(2))]
+                      + ("_general" if m.group(3) == "1" else ""))
+            label = f"{kernel} (fused_rollout_{m.group(1)}_kernel)"
         elif "registers" in line or "spill" in line or "stack frame" in line:
             print(f"[build] {label}: {line.strip()}")
+            got = usage.setdefault(kernel, {})
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores", line)
+            if m and "stack" not in got:
+                got["stack"], got["spill"] = int(m[1]), int(m[2])
+            m = re.search(r"Used (\d+) registers", line)
+            if m and "regs" not in got:
+                got["regs"] = int(m[1])
+    for k, want in BASELINE_PTXAS.items():
+        got = usage.get(k, {})
+        got = (got.get("regs"), got.get("stack"), got.get("spill"))
+        print(f"[build] {k}: (registers, stack frame B, spill stores B) "
+              f"{got} (baseline {want}; same {got == want})")
 
 
 def phase_hw_golden(kernel):
@@ -360,9 +405,9 @@ def _golden_params(want):
         **want.get("overrides", {}))
 
 
-def phase_jax_golden(name):
+def phase_jax_golden(name, fixture=None):
     from placement_tpu_torch.ops import fused_rollout as fr
-    want = json.loads((FIXTURES / JAX_GOLDENS[name]).read_text())
+    want = json.loads((FIXTURES / (fixture or JAX_GOLDENS[name])).read_text())
     params = _golden_params(want)
     fn = fr.make_fused_rollout(params, want["batch"], want["num_steps"],
                                block=want["block"], device="cuda")
@@ -499,11 +544,14 @@ def _chunk_bound(params, batch, steps, episodes, leaves):
     return max(t_bytes, t_ops) * 1e3, by, ops_int + ops_fp, nbytes
 
 
-def phase_kernel_vs_plain(label, params, block, batch=BATCH, timed=True):
+def phase_kernel_vs_plain(label, params, block, batch=BATCH, timed=True,
+                          plain_turns=True):
     """The kernel against its plain version on ``params`` at ``batch``
     boards and logical ``block``, two chained chunks; returns (max abs
     error, kernel ms per chunk, plain ms per chunk, bound ms, bound_by),
-    the error alone when not ``timed``."""
+    the error alone when not ``timed``. Without ``plain_turns`` the plain
+    version's time is that of the compared chunks (for a plain version of
+    tens of seconds a chunk), not of two more in turns with the kernel."""
     import torch
     from placement_tpu_torch.ops import fused_rollout as fr
     label += f" ({fr.kernel_name(params)} kernel)"
@@ -511,11 +559,15 @@ def phase_kernel_vs_plain(label, params, block, batch=BATCH, timed=True):
                                device="cuda")
     leaves = fr.zero_leaves(params, batch, "cuda")
     leaf_err = board_err = 0.0
+    compared_ms = []
     for seed in (1, 2):        # from zero boards, then from mid-run boards
         got, got_r, got_d = fn.per_board(leaves, seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want, want_r, want_d = fr.rollout_chunk_reference(
             params, leaves, seed, STEPS, block)
         torch.cuda.synchronize()
+        compared_ms.append((time.perf_counter() - t0) * 1e3)
         bad = [k for k in fr._LEAVES if not torch.equal(got[k], want[k])]
         leaf_err = max(leaf_err, max(
             float((got[k].double() - want[k].double()).abs().max())
@@ -543,15 +595,70 @@ def phase_kernel_vs_plain(label, params, block, batch=BATCH, timed=True):
     bound_ms, bound_by, ops, nbytes = _chunk_bound(
         params, batch, STEPS, int(got_d.sum()), leaves)
     # in turns: plain, kernel, kernel, plain
-    plain = [_plain_ms(params, leaves, 3, block)]
+    plain = [_plain_ms(params, leaves, 3, block)] if plain_turns else []
     kernel_ms = [_kernel_ms(fn, leaves, 10, TIMED_CHUNKS),
                  _kernel_ms(fn, leaves, 100, TIMED_CHUNKS)]
-    plain.append(_plain_ms(params, leaves, 4, block))
+    plain.append(_plain_ms(params, leaves, 4, block) if plain_turns
+                 else compared_ms[1])
     print(f"[kernel vs plain] {label}: ms per {STEPS}-step chunk: kernel "
           f"{kernel_ms!r}, plain {plain!r}; bound {bound_ms!r} ms by "
           f"{bound_by} ({ops!r} operations, {nbytes} bytes); share of "
           f"bound (bound / kernel ms) {bound_ms / min(kernel_ms)!r}")
     return err, min(kernel_ms), min(plain), bound_ms, bound_by
+
+
+def phase_envelope():
+    """[envelope]: each edge of the JAX kernel's envelope, which only the
+    general instantiations take: the kernel's leaf hashes equal to the JAX
+    kernel's recorded ones at the fixture's size; kernel == plain at
+    ``BATCH`` boards, two chained chunks, timed; then the matrix tool's
+    fused row on it (``bench_matrix.measure``, the user's entry point),
+    whose launches count. Then three default rows on the general
+    instantiation: their time beside the default one's, leaves equal.
+    Returns name -> (kernel, err, ms, plain ms, bound ms, bound_by,
+    launches)."""
+    import torch
+    from placement_tpu_torch.ops import fused_rollout as fr
+    from placement_tpu_torch.tools import bench_matrix as bm
+    out = {}
+    for name in ENVELOPE_EDGES:
+        want = phase_jax_golden(name, f"torch_fused_zero_envelope_{name}.json")
+        params = _golden_params(want)
+        _check(fr.needs_general(params), f"{name}: not a general config")
+        got = phase_kernel_vs_plain(f"envelope {name}", params,
+                                    ENVELOPE_BLOCK, plain_turns=False)
+        row, _ = bm.measure(name, params, "envelope edge", BATCH,
+                            device="cuda", block=ENVELOPE_BLOCK)
+        print(f"[envelope] {name} ({row['kernel']} kernel, general "
+              f"instantiation): {BATCH} boards, block {ENVELOPE_BLOCK}: "
+              f"kernel {got[1]!r} ms per chunk, plain {got[2]!r} ms, bound "
+              f"{got[3]!r} ms by {got[4]}; bench_matrix.measure "
+              f"{row['steps_per_sec']!r} env-steps/s, {row['launches']} "
+              f"launches for {row['calls']} calls, {row['episodes']} "
+              f"episodes")
+        _check(row["launches"] == row["calls"], f"{name}: matrix row "
+                                                "missed the kernel")
+        out[name] = (row["kernel"], *got, row["launches"])
+    # what the default instantiation saves where both run: the flagship's
+    # rows on the general one, leaves equal to the default one's
+    for row in ("pin_centroid", "pin_beam", "rect"):
+        params, block = _row(row)
+        ms = {}
+        for general in (False, True):
+            fn = fr.make_fused_rollout(params, BATCH, STEPS, block=block,
+                                       device="cuda")
+            fn._kparams.general = int(general)
+            leaves = fr.zero_leaves(params, BATCH, "cuda")
+            for seed in (1, 2):
+                leaves, _, _ = fn.per_board(leaves, seed)
+            ms[general] = (_kernel_ms(fn, leaves, 10, TIMED_CHUNKS), leaves)
+        same = all(torch.equal(ms[False][1][k], ms[True][1][k])
+                   for k in fr._LEAVES)
+        print(f"[envelope] {row} on the general instantiation: "
+              f"{ms[True][0]!r} ms per chunk, the default one {ms[False][0]!r}"
+              f" ms ({ms[True][0] / ms[False][0]!r} x); leaves equal {same}")
+        _check(same, f"{row}: the general instantiation's leaves differ")
+    return out
 
 
 def phase_batch_scaling(params, block):
@@ -2513,6 +2620,10 @@ def main():
         results[config] = phase_kernel_vs_plain(
             config, _golden_params(goldens[config]), block)
         phase_reward_split(config, _golden_params(goldens[config]), block)
+    # the general instantiations, on the edges of the JAX kernel's envelope
+    t_env = time.perf_counter()
+    envelope = phase_envelope()
+    print(f"[envelope] {time.perf_counter() - t_env!r} s for the phase")
     hw = json.loads(HW_GOLDENS.read_text())
     launches_1, _ = phase_main_path(_row("pin_centroid")[0],
                                     hw["centroid"]["mean_reward"])
@@ -2607,6 +2718,27 @@ def main():
             "bound_by": bound_by,
             "library_ms": None,
         })
+    # the general instantiations: the representative edge's numbers, the
+    # launches of every edge's matrix row, the largest error of its edges
+    for k, rep in GENERAL_ROWS.items():
+        _, err, ms, plain_ms, bound_ms, bound_by, _ = envelope[rep]
+        replaces = KERNELS[k][-1]
+        edges = [v for v in envelope.values() if v[0] == k]
+        entries.append({
+            "name": f"fused_rollout_{k}_general",
+            "route": "cuda",
+            "source": SOURCES[k],
+            "replaces": f"placement_tpu/ops/fused_rollout.py:866 "
+                        f"({replaces}; nets > 8, pins per net > 16 or a "
+                        f"side > 32)",
+            "launches": sum(v[-1] for v in edges),
+            "max_abs_err": max(v[1] for v in edges),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
     # the varying-pins branch on main path 3's config (the centroid
     # kernel); the error is the larger of both configs'
     err, ms, plain_ms, bound_ms, bound_by = results["varpin_web"]
@@ -2625,6 +2757,11 @@ def main():
         "bound_by": bound_by,
         "library_ms": None,
     })
+    for row, was in BASELINE_MS.items():
+        now = results[row][1]
+        print(f"[kernel vs plain] {row}: {now!r} ms per chunk, baseline "
+              f"{was!r} ms: {now / was!r} x (within 3%: "
+              f"{abs(now / was - 1) <= 0.03})")
     print(f"[kernel vs plain] beam bw=4: max abs err {err4!r}, kernel "
           f"{ms4!r} ms, plain {plain4!r} ms")
     print(f"[kernel vs plain] varpin_parity: max abs err "

@@ -15,25 +15,39 @@
 
 namespace {
 
-constexpr int MAX_H = 32;     // grid rows are 32-bit masks
+// The capacities of the general instantiation of each kernel (GENERAL =
+// true), which takes every configuration of the JAX kernel's envelope: a
+// board as a row-major bit string over the warp's lanes (fused_warp.cuh's
+// flat layout), so one side may pass 32 where the area stays within
+// MAX_AREA_LONG; nets and pins per net bounded by the pin table alone.
+constexpr int MAX_H = 32;     // both sides <= 32 ...
 constexpr int MAX_W = 32;
+constexpr int MAX_AREA_LONG = 144;  // ... or the area <= 144
 constexpr int MAX_C = 8;      // components
-constexpr int MAX_N = 8;      // nets
-constexpr int MAX_M = 16;     // pins per net
+constexpr int MAX_N = 24;     // nets (2+ pins each)
+constexpr int MAX_M = 48;     // pins per net
 constexpr int MAX_P = 48;     // pin-table length
 constexpr int MAX_PPC = 16;   // pins (cells) per component
 constexpr int MAX_C_NOPIN = 64;  // components of SQUARE / RECT boards
 constexpr int MAX_BW = 4;     // beam width
+// The default instantiation (GENERAL = false), the flagship's and every
+// configuration's within these: a grid row per lane (sides <= 32), at most
+// DEFAULT_N nets of DEFAULT_M pins.
+constexpr int DEFAULT_N = 8;
+constexpr int DEFAULT_M = 16;
 
 // The kernel's specialisations; KERNELS in fused_rollout.py names them.
 enum Kernel { K_CENTROID = 0, K_BEAM = 1, K_BOTH = 2, K_SQUARE = 3,
               K_RECT = 4 };
 
 static_assert(MAX_W <= 32, "a grid row must fit one 32-bit mask");
+static_assert(MAX_H * MAX_W <= 32 * 32 && MAX_AREA_LONG <= 32 * 32,
+              "a board's bit string must fit a warp's 32-bit words");
+static_assert(MAX_AREA_LONG <= 255, "a route's coordinates must fit bytes");
 static_assert(MAX_H * MAX_W <= (1 << 24), "cell counts must be exact in f32");
-static_assert(MAX_N * MAX_M <= 256, "per-net allocation table size");
+static_assert(MAX_P <= 64, "pin-table length");
 static_assert(MAX_C * MAX_PPC <= 256, "per-component cell table size");
-static_assert(MAX_M <= 32, "a net's visited pins must fit one 32-bit mask");
+static_assert(DEFAULT_N <= MAX_N && DEFAULT_M <= MAX_M, "a narrower default");
 
 }  // namespace
 
@@ -54,6 +68,7 @@ struct FusedRolloutParams {
   int32_t kernel;       // enum Kernel
   int32_t beam_width;   // K_BEAM, K_BOTH
   int32_t component_n;  // K_SQUARE's n x n footprint
+  int32_t general;      // run the general instantiation (needs_general)
 };
 
 // One device pointer per leaf, in the order of _LEAVES.

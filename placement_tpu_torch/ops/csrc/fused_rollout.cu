@@ -4,8 +4,10 @@
 // Replaces the Pallas TPU kernel of placement_tpu/ops/fused_rollout.py
 // (make_fused_rollout's pl.pallas_call at :866, body _build_kernel
 // :290-763) for the SQUARE and RECT environments (generate :364-397, the
-// step's sampling :610-643 and reward :711-713): one instantiation of
-// fused_rollout_reduced_kernel<K> each (enum Kernel in fused_common.cuh).
+// step's sampling :610-643 and reward :711-713): two instantiations of
+// fused_rollout_reduced_kernel<K, FLAT> each (enum Kernel in
+// fused_common.cuh), a grid row per lane (sides <= 32) and, for a board
+// with a side over 32, its bit string over the lanes (fused_warp.cuh).
 // No pin tables, +1 per placement, one (SQUARE) or two (RECT) orientation
 // planes. The pin kernels (K_CENTROID, K_BEAM, K_BOTH) are
 // fused_rollout_warp.cu's; fused_rollout_launch below dispatches to them.
@@ -97,7 +99,7 @@ __device__ __forceinline__ int comp_at(const int32_t (&t)[SLOTS], int i,
 // has `placed_all`, its legality planes and their counts. A square
 // component's (w, h) is the same footprint (always so for SQUARE): plane 1
 // copies plane 0.
-template <int K>
+template <int K, bool FLAT>
 __device__ __forceinline__ void next_component(const FusedRolloutParams& p,
                                                ReducedBoard& b,
                                                bool placed_all, int lane) {
@@ -108,13 +110,13 @@ __device__ __forceinline__ void next_component(const FusedRolloutParams& p,
     b.n0 = b.n1 = 0;
     return;
   }
-  b.pl0 = free_row<K == K_SQUARE>(p, b.grid, b.h, b.w, lane);
+  b.pl0 = free_row<K == K_SQUARE, FLAT>(p, b.grid, b.h, b.w, lane);
   b.n0 = plane_count(b.pl0);
   if (K == K_SQUARE || b.h == b.w) {
     b.pl1 = b.pl0;
     b.n1 = b.n0;
   } else {
-    b.pl1 = free_row<false>(p, b.grid, b.w, b.h, lane);
+    b.pl1 = free_row<false, FLAT>(p, b.grid, b.w, b.h, lane);
     b.n1 = plane_count(b.pl1);
   }
 }
@@ -124,7 +126,7 @@ __device__ __forceinline__ void next_component(const FusedRolloutParams& p,
 // SQUARE's unlimited supply of n x n components draws nothing (:364-377);
 // RECT draws heights (call 2), widths (call 3) and the count (call 4), each
 // entry on its own lane and slot (:379-397).
-template <int K>
+template <int K, bool FLAT>
 __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
                          ReducedBoard& b, int lane) {
   const int C = p.components;
@@ -150,7 +152,7 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
   b.grid = 0u;
   b.cur = 0;
   b.fresh = true;
-  next_component<K>(p, b, false, lane);
+  next_component<K, FLAT>(p, b, false, lane);
 }
 
 // ---- one step (body) -----------------------------------------------------
@@ -158,7 +160,7 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
 // Samples a legal action (:610-643: RECT over two planes, SQUARE over one),
 // places it for +1 (:711-713), makes the next component's planes and, on
 // done, regenerates the board.
-template <int K>
+template <int K, bool FLAT>
 __device__ void step(const FusedRolloutParams& p, const Rng& rng,
                      ReducedBoard& b, float& rsum, int& dcnt, int lane) {
   const int c0 = b.n0, c1 = K == K_SQUARE ? 0 : b.n1;
@@ -172,22 +174,22 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
     const bool odd = K == K_RECT && tgt >= pre1;  // the (w, h) orientation
     const float tin = tgt - (odd ? pre1 : 0.0f);
     int xx, yy;
-    nth_cell(p, odd ? b.pl1 : b.pl0, (int)tin, lane, xx, yy);
-    paint(p, b.grid, xx, yy, odd ? b.w : b.h, odd ? b.h : b.w, lane);
+    nth_cell<FLAT>(p, odd ? b.pl1 : b.pl0, (int)tin, lane, xx, yy);
+    paint<FLAT>(p, b.grid, xx, yy, odd ? b.w : b.h, odd ? b.h : b.w, lane);
     ++b.cur;
     rsum = rsum + 1.0f;
   }
   const bool placed_all = b.cur >= b.numc;
-  next_component<K>(p, b, placed_all, lane);
+  next_component<K, FLAT>(p, b, placed_all, lane);
   const bool done = placed_all || b.n0 + b.n1 == 0 || !alive;
   if (!done) return;
   ++dcnt;
-  generate<K>(p, rng, b, lane);
+  generate<K, FLAT>(p, rng, b, lane);
 }
 
 // ---- the kernel ------------------------------------------------------------
 
-template <int K>
+template <int K, bool FLAT>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 fused_rollout_reduced_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
                              FusedRolloutLeaves out, float* rsum_out,
@@ -200,9 +202,9 @@ fused_rollout_reduced_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   const int64_t b = bi;
 
   ReducedBoard bd;
-  bd.grid = load_rows(p, in.grid + b * A, lane);
-  bd.pl0 = load_rows(p, in.plane0 + b * A, lane);
-  bd.pl1 = load_rows(p, in.plane1 + b * A, lane);
+  bd.grid = load_rows<FLAT>(p, in.grid + b * A, lane);
+  bd.pl0 = load_rows<FLAT>(p, in.plane0 + b * A, lane);
+  bd.pl1 = load_rows<FLAT>(p, in.plane1 + b * A, lane);
   bd.n0 = plane_count(bd.pl0);
   bd.n1 = plane_count(bd.pl1);
 #pragma unroll
@@ -224,12 +226,12 @@ fused_rollout_reduced_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   int dcnt = 0;
   for (int t = 0; t < num_steps; ++t) {
     rng.salt = step_salt(blk_salt, t);
-    step<K>(p, rng, bd, rsum, dcnt, lane);
+    step<K, FLAT>(p, rng, bd, rsum, dcnt, lane);
   }
 
-  store_rows(p, out.grid + b * A, bd.grid, lane);
-  store_rows(p, out.plane0 + b * A, bd.pl0, lane);
-  store_rows(p, out.plane1 + b * A, bd.pl1, lane);
+  store_rows<FLAT>(p, out.grid + b * A, bd.grid, lane);
+  store_rows<FLAT>(p, out.plane0 + b * A, bd.pl0, lane);
+  store_rows<FLAT>(p, out.plane1 + b * A, bd.pl1, lane);
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s) {
     const int c = lane + 32 * s;
@@ -264,8 +266,21 @@ void launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
             int batch, int num_steps, int block, uint32_t seed,
             cudaStream_t stream) {
   const int grid = (batch + WARPS - 1) / WARPS;
-  fused_rollout_reduced_kernel<K><<<grid, BLOCK_THREADS, 0, stream>>>(
-      p, in, out, rsum, dcnt, batch, num_steps, block, seed);
+  if (p.general)
+    fused_rollout_reduced_kernel<K, true><<<grid, BLOCK_THREADS, 0, stream>>>(
+        p, in, out, rsum, dcnt, batch, num_steps, block, seed);
+  else
+    fused_rollout_reduced_kernel<K, false><<<grid, BLOCK_THREADS, 0, stream>>>(
+        p, in, out, rsum, dcnt, batch, num_steps, block, seed);
+}
+
+// Whether the instantiation that p.general picks holds p's board and, for
+// the pin kernels, its nets.
+bool fits(const FusedRolloutParams& p) {
+  const bool rows = p.height <= MAX_H && p.width <= MAX_W;
+  if (p.general) return rows || p.height * p.width <= MAX_AREA_LONG;
+  return rows && (p.kernel >= K_SQUARE ||
+                  (p.nets <= DEFAULT_N && p.pins_per_net <= DEFAULT_M));
 }
 
 }  // namespace
@@ -277,6 +292,7 @@ extern "C" {
 int fused_rollout_capacity(const char* what) {
   if (!strcmp(what, "height")) return MAX_H;
   if (!strcmp(what, "width")) return MAX_W;
+  if (!strcmp(what, "area")) return MAX_AREA_LONG;
   if (!strcmp(what, "components")) return MAX_C;
   if (!strcmp(what, "nets")) return MAX_N;
   if (!strcmp(what, "pins_per_net")) return MAX_M;
@@ -296,6 +312,7 @@ int fused_rollout_launch(const FusedRolloutParams* params,
                          int32_t* dcnt, int batch, int num_steps, int block,
                          uint32_t seed, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (!fits(*params)) return (int)cudaErrorInvalidValue;
   switch (params->kernel) {
     case K_CENTROID:  // the pin kernels: one warp per board,
     case K_BEAM:      // fused_rollout_warp.cu

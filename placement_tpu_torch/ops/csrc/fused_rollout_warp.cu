@@ -54,6 +54,14 @@
 //     three instantiations: all of 4096 boards (31 warps per SM on 132 SMs)
 //     are resident at once. The beam's state spills a few words (8-16 B);
 //     that costs less than the occupancy that more registers would lose.
+// Each reward has two instantiations, fused_rollout_warp_kernel<K, GENERAL>.
+// The default one (the flagship's, every config within DEFAULT_N nets of
+// DEFAULT_M pins on a board of sides <= 32) is the design above. The general
+// one takes the JAX kernel's whole envelope: the board as its bit string
+// over the lanes (fused_warp.cuh's flat layout, a side may pass 32), a net's
+// ranks 32.. on a second lane slot in the allocation, and the beam search
+// one net a turn on the whole warp (beam_wl_int_general: pin j on lane
+// j % 32, slot j / 32, coordinates up to 254), at up to 128 registers.
 // Every f32 sum whose order the plain version fixes is still taken in that
 // order (the wirelength over pins, or over nets and path positions, the
 // allocation's weights, the softmax total and cumulative probabilities, the
@@ -76,9 +84,10 @@ namespace {
 constexpr int WARPS = 8;                 // boards per block
 constexpr int BLOCK_THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS = 4;            // 64 registers a thread
+constexpr int MIN_BLOCKS_GENERAL = 2;    // 128: the general beam's state
 
-static_assert(MAX_P <= 64, "two pin slots per lane");
-static_assert(MAX_C <= 32 && MAX_N <= 32 && MAX_M <= 32, "a lane per entry");
+static_assert(MAX_P <= 64 && MAX_M <= 64, "two pin slots per lane");
+static_assert(MAX_C <= 32 && MAX_N <= 32, "a lane per component and net");
 static_assert(MAX_PPC <= 16, "two components' cells per warp pass");
 
 // A board: lane x's grid and plane rows, lane c's component, lane q's pins
@@ -99,6 +108,7 @@ __device__ __forceinline__ int comp_at(int v, int i, int C) {
 
 // ---- legality planes ------------------------------------------------------
 
+template <bool FLAT>
 __device__ __forceinline__ void planes_for(const FusedRolloutParams& p,
                                            WarpBoard& b, int ch_c, int cw_c,
                                            bool alive, int lane) {
@@ -106,8 +116,8 @@ __device__ __forceinline__ void planes_for(const FusedRolloutParams& p,
     b.pl0 = b.pl1 = 0u;
     return;
   }
-  b.pl0 = free_row<false>(p, b.grid, ch_c, cw_c, lane);
-  b.pl1 = free_row<false>(p, b.grid, cw_c, ch_c, lane);
+  b.pl0 = free_row<false, FLAT>(p, b.grid, ch_c, cw_c, lane);
+  b.pl1 = free_row<false, FLAT>(p, b.grid, cw_c, ch_c, lane);
 }
 
 // ---- centroid routing reward (fused_routing.centroid_wl_int) -------------
@@ -241,8 +251,8 @@ constexpr float NO_CAND = 3e9f;   // no candidate on this lane
 constexpr int NO_SEG = -1;        // no route segment in this slot
 
 static_assert(MAX_BW <= 4, "a byte of a path position, 2 bits of an index");
-static_assert(MAX_M <= 16, "a beam's lane in 4 bits, 2+ nets a turn");
-static_assert(MAX_N * MAX_M <= 4 * 32, "4 segment slots per lane");
+static_assert(DEFAULT_M <= 16, "a beam's lane in 4 bits, 2+ nets a turn");
+static_assert(DEFAULT_N * DEFAULT_M <= 4 * 32, "4 segment slots per lane");
 
 // The min of v over the lanes [base, base + M) of the caller's net, on
 // every lane of it (j = lane - base): a suffix min towards lane base, then
@@ -510,16 +520,321 @@ __device__ void beam_wl_int(const FusedRolloutParams& p, const WarpBoard& b,
   ints_out = warp_sum(ints);
 }
 
+// ---- the general instantiation's beam route (nets of up to 48 pins) ------
+
+// The min of v over the warp, on every lane.
+template <class T>
+__device__ __forceinline__ T warp_min(T v) {
+  for (int d = 16; d >= 1; d >>= 1) {
+    const T o = __shfl_xor_sync(FULL, v, d);
+    v = o < v ? o : v;
+  }
+  return v;
+}
+
+// The first pin j (lane j % 32, slot j / 32) where `hit` holds, 0 if none.
+__device__ __forceinline__ int first_pin(bool hit0, bool hit1) {
+  const uint32_t b0 = __ballot_sync(FULL, hit0);
+  const uint32_t b1 = __ballot_sync(FULL, hit1);
+  return b0 ? __ffs(b0) - 1 : (b1 ? 31 + __ffs(b1) : 0);
+}
+
+// The value of a pin-indexed pair at pin j (uniform j < 64).
+__device__ __forceinline__ float pin_at(const float (&v)[2], int j) {
+  const float lo = __shfl_sync(FULL, v[0], j & 31);
+  const float hi = __shfl_sync(FULL, v[1], j & 31);
+  return j < 32 ? lo : hi;
+}
+
+// beam_wl_int for any net of up to MAX_M pins and coordinates up to 254:
+// the same search, tie rules and sums, one net a turn on the whole warp.
+// Net rank j's pin, its candidate of each beam, whether each beam has
+// visited it and each beam's path position j live on lane j % 32, slot
+// j / 32; a beam's last pin takes a byte of `curs`, the pin's key 16 bits
+// of the selection key, the winning pin 6 bits of `sel`.
+__device__ void beam_wl_int_general(const FusedRolloutParams& p,
+                                    const WarpBoard& b, int lane, int* segs,
+                                    float& wl_out, int& ints_out) {
+  const int N = p.nets, M = p.pins_per_net, P = p.pins, bw = p.beam_width;
+  // a pin's net, or -1 where it is not routed
+  int net_on[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = lane + 32 * s, n = b.pnet[s];
+    net_on[s] = (q < P && q < b.npin && n >= 0 && n < N) ? n : -1;
+  }
+  // lane n: net n's pin count and first pin
+  int cnt_l = 0;
+  for (int n = 0; n < N; ++n) {
+    const int c = warp_sum((net_on[0] == n) + (net_on[1] == n));
+    if (lane == n) cnt_l = c;
+  }
+  const int start_l = warp_scan(cnt_l, lane, N) - cnt_l;
+  __syncwarp();  // the generator's reads of the shared slice are done
+
+  float wl = 0.f;
+  for (int n = 0; n < N; ++n) {
+    const int cnt = __shfl_sync(FULL, cnt_l, n);
+    const int st = __shfl_sync(FULL, start_l, n);
+    const int lim = min(cnt, M);
+    // rank j = lane + 32 s: the net's pin at table position st + j
+    float x[2], y[2];
+    uint32_t key[2];
+    bool inseg[2], present[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int j = lane + 32 * s, q = st + j, src = q & 31;
+      const int n_lo = __shfl_sync(FULL, net_on[0], src);
+      const int n_hi = __shfl_sync(FULL, net_on[1], src);
+      const int x_lo = __shfl_sync(FULL, b.pax[0], src);
+      const int x_hi = __shfl_sync(FULL, b.pax[1], src);
+      const int y_lo = __shfl_sync(FULL, b.pay[0], src);
+      const int y_hi = __shfl_sync(FULL, b.pay[1], src);
+      const bool hi = q >= 32;
+      inseg[s] = j < M;
+      const bool has = inseg[s] && q < 64 && (hi ? n_hi : n_lo) == n;
+      x[s] = has ? (float)(hi ? x_hi : x_lo) : 0.f;
+      y[s] = has ? (float)(hi ? y_hi : y_lo) : 0.f;
+      // the pin's key: the order of x * 32768 + y
+      key[s] = (uint32_t)(((int)x[s] + 1) << 8 | ((int)y[s] + 1));
+      present[s] = j < lim;
+    }
+
+    // start: the pin farthest from the net centroid (coordinate sums are
+    // small integers, exact in any order)
+    const int sxi = warp_sum((present[0] ? (int)x[0] : 0) +
+                             (present[1] ? (int)x[1] : 0));
+    const int syi = warp_sum((present[0] ? (int)y[0] : 0) +
+                             (present[1] ? (int)y[1] : 0));
+    const float denom = (float)max(cnt, 1);
+    const float cx = (float)sxi / denom, cy = (float)syi / denom;
+    float d0[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float ex = x[s] - cx, ey = y[s] - cy;
+      d0[s] = present[s] ? sqrtf(ex * ex + ey * ey) : -1.f;
+    }
+    const float dmax = -warp_min(-fmaxf(d0[0], d0[1]));
+    const int start = first_pin(d0[0] == dmax, d0[1] == dmax);
+
+    // the beams: cost, last pin (a byte each), path rank (2 bits each);
+    // pin j: byte k of path[s] = beam k's pin at path position j, bit k of
+    // visb[s] = beam k has visited (or has no) pin j
+    float cost[MAX_BW];
+#pragma unroll
+    for (int k = 0; k < MAX_BW; ++k) cost[k] = k == 0 ? 0.f : BIG;
+    uint32_t curs = (uint32_t)start * 0x01010101u, ranks = 0u;
+    uint32_t path[2], visb[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int j = lane + 32 * s;
+      path[s] = j == 0 ? (uint32_t)start * 0x01010101u : 0u;
+      visb[s] = (j == start || !present[s]) ? 0xfu : 0u;
+    }
+    const int rounds = max(lim - 1, 0);
+
+    for (int step = 0; step < rounds; ++step) {
+      // each pin's candidate of each beam: cost, nearest-pin rank c
+      float cc[2][MAX_BW];
+      uint32_t cn[2] = {0u, 0u};
+#pragma unroll
+      for (int k = 0; k < MAX_BW; ++k) {
+        cc[0][k] = cc[1][k] = NO_CAND;
+        if (k >= bw) continue;
+        const int cur = (int)(curs >> (8 * k)) & 0xff;
+        const float curx = pin_at(x, cur), cury = pin_at(y, cur);
+        float d[2];
+        bool taken[2] = {false, false};
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const float dx = x[s] - curx, dy = y[s] - cury;
+          d[s] = (visb[s] >> k) & 1u ? BIG : sqrtf(dx * dx + dy * dy);
+        }
+        for (int c = 0; c < bw; ++c) {
+          // the nearest pin not taken yet, first wins; no pin past M
+          const float e0 = !inseg[0] || taken[0] ? INF2 : d[0];
+          const float e1 = !inseg[1] || taken[1] ? INF2 : d[1];
+          const float m = warp_min(fminf(e0, e1));
+          const int jj = first_pin(e0 == m, e1 == m);
+          if (m < INF2 && lane == (jj & 31)) {
+            const int s = jj >> 5;
+            const float ccost = cost[k] + m;
+            const float v = ccost >= BIG ? BIG : ccost;
+            if (s == 0) {
+              taken[0] = true;
+              cc[0][k] = v;
+              cn[0] |= (uint32_t)c << (2 * k);
+            } else {
+              taken[1] = true;
+              cc[1][k] = v;
+              cn[1] |= (uint32_t)c << (2 * k);
+            }
+          }
+        }
+      }
+      // keep the bw best: new beam k2 is the candidate of rank k2, found as
+      // the warp's min key; sel[k2] = its key's low bits (the parent's
+      // rank, the new pin's key, the parent k, c) and its pin at bit 22
+      uint32_t sel[MAX_BW];
+#pragma unroll
+      for (int k2 = 0; k2 < MAX_BW; ++k2) {
+        sel[k2] = 0u;
+        if (k2 >= bw) continue;
+        uint64_t mine = ~0ull;
+        int mine_s = 0;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+#pragma unroll
+          for (int k = 0; k < MAX_BW; ++k) {
+            if (k >= bw || cc[s][k] > BIG) continue;
+            const uint32_t rk = (ranks >> (2 * k)) & 3u;
+            const uint32_t lo = rk << 20 | key[s] << 4 | (uint32_t)k << 2 |
+                                ((cn[s] >> (2 * k)) & 3u);
+            const uint64_t o = (uint64_t)__float_as_uint(cc[s][k]) << 32 | lo;
+            if (o < mine) {
+              mine = o;
+              mine_s = s;
+            }
+          }
+        }
+        const uint64_t w = warp_min(mine);
+        const int win = max(__ffs(__ballot_sync(FULL, mine == w)) - 1, 0);
+        const int ws = __shfl_sync(FULL, mine_s, win);
+        const int kp = (int)(w >> 2) & 3;
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int k = 0; k < MAX_BW; ++k)
+            if (lane == win && s == ws && k == kp) cc[s][k] = NO_CAND;
+        sel[k2] = ((uint32_t)w & 0x3fffffu) | (uint32_t)(win + 32 * ws) << 22;
+        cost[k2] = __uint_as_float((uint32_t)(w >> 32));
+      }
+      // the new beams' ranks, last pins, paths and visited pins
+      uint32_t nranks = 0u, ncurs = 0u, npath[2] = {0u, 0u};
+      uint32_t nvisb[2] = {0u, 0u};
+#pragma unroll
+      for (int k2 = 0; k2 < MAX_BW; ++k2) {
+        if (k2 >= bw) continue;
+        const uint32_t pk = (sel[k2] >> 4) & 0x3ffffu;  // parent rank, key
+        uint32_t r = 0u;
+#pragma unroll
+        for (int k3 = 0; k3 < MAX_BW; ++k3)
+          r += k3 < bw && ((sel[k3] >> 4) & 0x3ffffu) < pk;
+        const int par = (int)(sel[k2] >> 2) & 3;
+        const uint32_t jj = sel[k2] >> 22;
+        nranks |= r << (2 * k2);
+        ncurs |= jj << (8 * k2);
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int j = lane + 32 * s;
+          const uint32_t pbyte = (path[s] >> (8 * par)) & 0xffu;
+          const uint32_t byte =
+              j <= step ? pbyte : (j == step + 1 ? jj : 0u);
+          npath[s] |= byte << (8 * k2);
+          nvisb[s] |= (((visb[s] >> par) & 1u) | (uint32_t)(j == (int)jj))
+                      << k2;
+        }
+      }
+      ranks = nranks;
+      curs = ncurs;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        path[s] = npath[s];
+        visb[s] = nvisb[s];
+      }
+    }
+
+    // the route: the best beam by (cost, path rank), first wins
+    int best = 0;
+    float bc = cost[0];
+    uint32_t br = ranks & 3u;
+#pragma unroll
+    for (int k = 1; k < MAX_BW; ++k) {
+      const uint32_t rk = (ranks >> (2 * k)) & 3u;
+      if (k < bw && (cost[k] < bc || (cost[k] == bc && rk < br))) {
+        best = k;
+        bc = cost[k];
+        br = rk;
+      }
+    }
+    // path position t = lane + 32 s: its pin, and the next position's
+    float rx[2], ry[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int rl = (int)(path[s] >> (8 * best)) & 0xff;
+      const float xl = __shfl_sync(FULL, x[0], rl & 31);
+      const float xh = __shfl_sync(FULL, x[1], rl & 31);
+      const float yl = __shfl_sync(FULL, y[0], rl & 31);
+      const float yh = __shfl_sync(FULL, y[1], rl & 31);
+      rx[s] = rl < 32 ? xl : xh;
+      ry[s] = rl < 32 ? yl : yh;
+    }
+    const float wrap_x = __shfl_sync(FULL, rx[1], 0);
+    const float wrap_y = __shfl_sync(FULL, ry[1], 0);
+    const float down_x0 = __shfl_down_sync(FULL, rx[0], 1);
+    const float down_y0 = __shfl_down_sync(FULL, ry[0], 1);
+    const float rx2[2] = {lane == 31 ? wrap_x : down_x0,
+                          __shfl_down_sync(FULL, rx[1], 1)};
+    const float ry2[2] = {lane == 31 ? wrap_y : down_y0,
+                          __shfl_down_sync(FULL, ry[1], 1)};
+    float term[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int t = lane + 32 * s;
+      const bool sv = t + 1 <= lim - 1;
+      const float ddx = rx[s] - rx2[s], ddy = ry[s] - ry2[s];
+      term[s] = sv ? sqrtf(ddx * ddx + ddy * ddy) : 0.f;
+      if (t < M)
+        segs[n * M + t] = sv ? pack_seg(rx[s], ry[s], rx2[s], ry2[s]) : NO_SEG;
+    }
+    // the wirelength, nets outer, positions inner
+    for (int t = 0; t < rounds; ++t)
+      wl += __shfl_sync(FULL, t < 32 ? term[0] : term[1], t & 31);
+  }
+  __syncwarp();
+
+  // crossings of segments on different nets: segment a broadcast from
+  // shared memory, the later nets' segments on the lanes' own slots
+  // (N * M <= MAX_P: two)
+  int own[2], own_net[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = lane + 32 * r;
+    own[r] = i < N * M ? segs[i] : NO_SEG;
+    own_net[r] = i / M;
+  }
+  int ints = 0;
+  for (int na = 0; na + 1 < N; ++na) {
+    for (int t = 0; t + 1 < M; ++t) {
+      const int sa = segs[na * M + t];
+      if (sa == NO_SEG) continue;
+      const float ax1 = seg_coord(sa, 0), ay1 = seg_coord(sa, 1);
+      const float ax2 = seg_coord(sa, 2), ay2 = seg_coord(sa, 3);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (own[r] != NO_SEG && own_net[r] > na)
+          ints += seg_intersect(ax1, ay1, ax2, ay2, seg_coord(own[r], 0),
+                                seg_coord(own[r], 1), seg_coord(own[r], 2),
+                                seg_coord(own[r], 3));
+    }
+  }
+  wl_out = wl;
+  ints_out = warp_sum(ints);
+}
+
 // The routed terminal reward of the kernel's reward type (reward_rows);
 // "both" takes the route with fewer crossings, a tie goes to beam.
-template <int K>
+template <int K, bool GENERAL>
 __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
                                                const WarpBoard& b, int lane,
                                                int* segs) {
   float wl = 0.f, c_wl = 0.f;
   int ints = 0, c_ints = 0;
   if constexpr (K != K_BEAM) centroid_wl_int(p, b, lane, c_wl, c_ints);
-  if constexpr (K != K_CENTROID) beam_wl_int(p, b, lane, segs, wl, ints);
+  if constexpr (K != K_CENTROID && GENERAL)
+    beam_wl_int_general(p, b, lane, segs, wl, ints);
+  if constexpr (K != K_CENTROID && !GENERAL)
+    beam_wl_int(p, b, lane, segs, wl, ints);
   if (K == K_CENTROID || (K == K_BOTH && ints > c_ints)) {
     wl = c_wl;
     ints = c_ints;
@@ -531,7 +846,9 @@ __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
 
 // One net's pin -> component allocation, drawing call `call`: writes the
 // component of each of the net's M ranks to comp_of[0..M) and, when the net
-// is open, updates `space` (lane c: component c's free cells).
+// is open, updates `space` (lane c: component c's free cells). Rank j is on
+// lane j; WIDE (M up to 48) puts ranks 32.. on a second slot.
+template <bool WIDE>
 __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
                              uint32_t call, int m, int k0, bool open,
                              int& space, int* comp_of, int lane) {
@@ -563,9 +880,17 @@ __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
   int bin = 0;
   for (int c = 0; c < C - 1; ++c)
     bin += ut > __shfl_sync(FULL, cw_cum, c) / tot_w;
+  int bin2 = 0;  // WIDE: rank lane + 32's
+  if constexpr (WIDE) {
+    const float ut2 = rng.uniform(call, M, lane + 32);
+    for (int c = 0; c < C - 1; ++c)
+      bin2 += ut2 > __shfl_sync(FULL, cw_cum, c) / tot_w;
+  }
   int cnt = 0;
   for (int c = 0; c < C; ++c) {
-    const int got = __popc(__ballot_sync(FULL, lane < m && bin == c));
+    int got = __popc(__ballot_sync(FULL, lane < m && bin == c));
+    if constexpr (WIDE)
+      got += __popc(__ballot_sync(FULL, lane + 32 < m && bin2 == c));
     if (lane == c) cnt = got;
   }
   cnt = min(cnt, s_space);
@@ -579,6 +904,13 @@ __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
   for (int c = 0; c < C; ++c) slot += lane >= __shfl_sync(FULL, bound, c);
   const int comp = __shfl_sync(FULL, sidx, min(slot, C - 1));
   if (lane < M) comp_of[lane] = comp;
+  if constexpr (WIDE) {
+    int slot2 = 0;
+    for (int c = 0; c < C; ++c)
+      slot2 += lane + 32 >= __shfl_sync(FULL, bound, c);
+    const int comp2 = __shfl_sync(FULL, sidx, min(slot2, C - 1));
+    if (lane + 32 < M) comp_of[lane + 32] = comp2;
+  }
   if (open) {
     const int left = __shfl_sync(FULL, s_space - cnt, pos & 31);
     if (cl) space = left;
@@ -633,6 +965,7 @@ __device__ int extra_pins(const FusedRolloutParams& p, const Rng& rng,
 
 // The generator (generate, :363-601) into board `b`; `table` and `cells`
 // are this warp's shared slices.
+template <bool GENERAL>
 __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
                          WarpBoard& b, int* table, int* cells, int lane) {
   const int C = p.components, N = p.nets, M = p.pins_per_net, P = p.pins;
@@ -669,8 +1002,9 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
   k0 = min(k0, b.numc);
   __syncwarp();  // the last episode's reads of the tables are done
   for (int n = 0; n < N; ++n)  // draws call_base .. call_base+N-1
-    allocate_net(p, rng, call_base + n, __shfl_sync(FULL, net_count, n), k0,
-                 n < nn, space, table + n * M, lane);
+    allocate_net<GENERAL>(p, rng, call_base + n,
+                          __shfl_sync(FULL, net_count, n), k0, n < nn, space,
+                          table + n * M, lane);
 
   // draw call_base+N: a random cell order per component, the stable
   // ascending sort of uniform scores (unused cells 2.0) as ranks by
@@ -746,13 +1080,13 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
   }
   b.grid = 0u;
   b.cur = 0;
-  planes_for(p, b, __shfl_sync(FULL, b.ch, 0), __shfl_sync(FULL, b.cw, 0),
-             true, lane);
+  planes_for<GENERAL>(p, b, __shfl_sync(FULL, b.ch, 0),
+                      __shfl_sync(FULL, b.cw, 0), true, lane);
 }
 
 // ---- one step (body) -----------------------------------------------------
 
-template <int K>
+template <int K, bool GENERAL>
 __device__ void step(const FusedRolloutParams& p, const Rng& rng,
                      WarpBoard& b, float& rsum, int& dcnt, int* table,
                      int* cells, int lane) {
@@ -773,12 +1107,13 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
                                        : pre3);
   const bool even = osel % 2 == 0;
   int xx, yy;
-  nth_cell(p, even ? b.pl0 : b.pl1, (int)tin, lane, xx, yy);
+  nth_cell<GENERAL>(p, even ? b.pl0 : b.pl1, (int)tin, lane, xx, yy);
   const bool alive = total > 0.0f;
 
   const int chc = comp_at(b.ch, b.cur, C), cwc = comp_at(b.cw, b.cur, C);
   if (alive) {
-    paint(p, b.grid, xx, yy, even ? chc : cwc, even ? cwc : chc, lane);
+    paint<GENERAL>(p, b.grid, xx, yy, even ? chc : cwc, even ? cwc : chc,
+                   lane);
     // pin rotation (Component.place_component:156-204)
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
@@ -796,29 +1131,32 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
     ++b.cur;
   }
   const bool placed_all = b.cur >= b.numc;
-  planes_for(p, b, comp_at(b.ch, b.cur, C), comp_at(b.cw, b.cur, C),
-             !placed_all, lane);
+  planes_for<GENERAL>(p, b, comp_at(b.ch, b.cur, C),
+                      comp_at(b.cw, b.cur, C), !placed_all, lane);
   const int nt = plane_count(b.pl0) + plane_count(b.pl1);
   const bool done = placed_all || nt == 0 || !alive;
   if (!done) return;
   // routed reward on the post-placement tables, else the penalty
   const float reward =
-      (placed_all && alive) ? routed_reward<K>(p, b, lane, table)
+      (placed_all && alive) ? routed_reward<K, GENERAL>(p, b, lane, table)
                             : p.penalty;
   rsum = rsum + reward;
   ++dcnt;
-  generate(p, rng, b, table, cells, lane);
+  generate<GENERAL>(p, rng, b, table, cells, lane);
 }
 
 // ---- the kernel ------------------------------------------------------------
 
-template <int K>
-__global__ void __launch_bounds__(BLOCK_THREADS, MIN_BLOCKS)
+template <int K, bool GENERAL>
+__global__ void __launch_bounds__(BLOCK_THREADS,
+                                  GENERAL ? MIN_BLOCKS_GENERAL : MIN_BLOCKS)
 fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
                           FusedRolloutLeaves out, float* rsum_out,
                           int32_t* dcnt_out, int batch, int num_steps,
                           int block, uint32_t seed) {
-  __shared__ int s_table[WARPS][MAX_N * MAX_M];
+  // the per-net allocation table, N x M entries (N * M is the pin table's
+  // length), which the beam route reuses for its segments
+  __shared__ int s_table[WARPS][GENERAL ? MAX_P : DEFAULT_N * DEFAULT_M];
   __shared__ int s_cells[WARPS][MAX_C * MAX_PPC];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bi = blockIdx.x * WARPS + warp;
@@ -828,9 +1166,9 @@ fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   const int64_t b = bi;
 
   WarpBoard bd;
-  bd.grid = load_rows(p, in.grid + b * A, lane);
-  bd.pl0 = load_rows(p, in.plane0 + b * A, lane);
-  bd.pl1 = load_rows(p, in.plane1 + b * A, lane);
+  bd.grid = load_rows<GENERAL>(p, in.grid + b * A, lane);
+  bd.pl0 = load_rows<GENERAL>(p, in.plane0 + b * A, lane);
+  bd.pl1 = load_rows<GENERAL>(p, in.plane1 + b * A, lane);
   bd.ch = lane < C ? in.comp_h[b * C + lane] : 0;
   bd.cw = lane < C ? in.comp_w[b * C + lane] : 0;
   bd.cur = in.cursor[b];
@@ -856,12 +1194,13 @@ fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   int dcnt = 0;
   for (int t = 0; t < num_steps; ++t) {
     rng.salt = step_salt(blk_salt, t);
-    step<K>(p, rng, bd, rsum, dcnt, s_table[warp], s_cells[warp], lane);
+    step<K, GENERAL>(p, rng, bd, rsum, dcnt, s_table[warp], s_cells[warp],
+                     lane);
   }
 
-  store_rows(p, out.grid + b * A, bd.grid, lane);
-  store_rows(p, out.plane0 + b * A, bd.pl0, lane);
-  store_rows(p, out.plane1 + b * A, bd.pl1, lane);
+  store_rows<GENERAL>(p, out.grid + b * A, bd.grid, lane);
+  store_rows<GENERAL>(p, out.plane0 + b * A, bd.pl0, lane);
+  store_rows<GENERAL>(p, out.plane1 + b * A, bd.pl1, lane);
   if (lane < C) {
     out.comp_h[b * C + lane] = bd.ch;
     out.comp_w[b * C + lane] = bd.cw;
@@ -893,8 +1232,12 @@ int launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
            int batch, int num_steps, int block, uint32_t seed,
            cudaStream_t stream) {
   const int grid = (batch + WARPS - 1) / WARPS;
-  fused_rollout_warp_kernel<K><<<grid, BLOCK_THREADS, 0, stream>>>(
-      p, in, out, rsum, dcnt, batch, num_steps, block, seed);
+  if (p.general)
+    fused_rollout_warp_kernel<K, true><<<grid, BLOCK_THREADS, 0, stream>>>(
+        p, in, out, rsum, dcnt, batch, num_steps, block, seed);
+  else
+    fused_rollout_warp_kernel<K, false><<<grid, BLOCK_THREADS, 0, stream>>>(
+        p, in, out, rsum, dcnt, batch, num_steps, block, seed);
   return (int)cudaGetLastError();
 }
 

@@ -28,7 +28,10 @@ Covered: every specialisation of the JAX kernel. PIN / PIN_SPATIAL with the
 with fixed pins per net or with ``max_num_pins_per_net >
 min_num_pins_per_net`` (the softmax-normal net allocation, a branch of the
 generator); the SQUARE and RECT reduced kernels (+1 per placement, no pin
-tables).
+tables). Each kernel has a default instantiation (the flagship's sizes)
+and a general one (``needs_general``: more than 8 nets or 16 pins per net,
+or a side over 32), which together take the JAX kernel's whole envelope
+and boards of up to 32 x 32 (``KERNEL_CAPACITY``).
 """
 
 from __future__ import annotations
@@ -56,23 +59,30 @@ _LEAVES = ("grid", "comp_h", "comp_w", "cursor", "num_components",
            "pin_net", "pin_comp", "num_pins", "plane0", "plane1")
 _FLOAT_LEAVES = ("grid", "plane0", "plane1")
 
-#: Fixed capacities of the CUDA kernel (the ``MAX_*`` constants of
+#: Fixed capacities of the CUDA kernels (the ``MAX_*`` constants of
 #: ``csrc/fused_common.cuh``; the wrapper checks the library reports the
-#: same). Grid rows are 32-bit masks; every other table is a per-board
+#: same): the JAX kernel's envelope and boards of up to 32 x 32. A board
+#: has both sides within ``height`` and ``width``, or its area within
+#: ``area`` (one side may then pass 32); every other table is a per-board
 #: array of this length. Pin configs are held to the pin capacities (and
 #: ``beam_width`` for the beam and "both" rewards), SQUARE / RECT only to
-#: the grid and ``components_nopin``.
+#: the board and ``components_nopin``.
 KERNEL_CAPACITY = {
     "height": 32,
     "width": 32,
+    "area": 144,
     "components": 8,
-    "nets": 8,
-    "pins_per_net": 16,
+    "nets": 24,
+    "pins_per_net": 48,
     "pins": 48,
     "pins_per_component": 16,
     "components_nopin": 64,
     "beam_width": 4,
 }
+#: What the default instantiation of each kernel holds (``DEFAULT_*``):
+#: a grid row per lane and the flagship-sized pin tables. A config past
+#: these runs the general instantiation (``needs_general``).
+DEFAULT_CAPACITY = {"height": 32, "width": 32, "nets": 8, "pins_per_net": 16}
 
 #: The kernel's specialisations, in the order of the C enum ``Kernel``.
 KERNELS = ("centroid", "beam", "both", "square", "rect")
@@ -664,10 +674,17 @@ def envelope_report(params: EnvParams) -> "tuple[bool, list]":
     """Check ``params`` against the kernel's fixed capacities
     (``KERNEL_CAPACITY``), split as the JAX ``envelope_report`` (:100-121)
     splits them: pin configs against the pin tables (and the beam width
-    for the beam and "both" rewards), SQUARE / RECT against the grid and
-    ``components_nopin`` only. Returns ``(ok, reasons)``, one reason per
-    violated limit."""
-    sizes = {"height": params.height, "width": params.width}
+    for the beam and "both" rewards), SQUARE / RECT against the board and
+    ``components_nopin`` only. A board with one side over 32 is held to the
+    area, and breaks that side's limit and the area's where it is over; one
+    with both sides over 32 breaks both sides'. Returns ``(ok, reasons)``,
+    one reason per violated limit."""
+    sizes = {}
+    if params.area > KERNEL_CAPACITY["area"]:
+        sizes = {"height": params.height, "width": params.width}
+        over = [k for k, v in sizes.items() if v > KERNEL_CAPACITY[k]]
+        if len(over) == 1:
+            sizes["area"] = params.area
     if params.has_pins:
         sizes.update({
             "components": params.max_components,
@@ -690,6 +707,17 @@ def supports(params: EnvParams) -> bool:
     return envelope_report(params)[0]
 
 
+def needs_general(params: EnvParams) -> bool:
+    """Whether ``params`` runs the general instantiation of its kernel (a
+    side over 32, or more nets or pins per net than the default one
+    holds)."""
+    sizes = {"height": params.height, "width": params.width}
+    if params.has_pins:
+        sizes.update(nets=params.max_num_nets,
+                     pins_per_net=params.max_num_pins_per_net)
+    return any(v > DEFAULT_CAPACITY[k] for k, v in sizes.items())
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels' C interface (csrc/fused_rollout.cu, built by _build.py)
 # ---------------------------------------------------------------------------
@@ -705,7 +733,7 @@ class _KernelParams(ctypes.Structure):
             "lam_w", "lam_i", "wl_norm", "int_norm", "penalty",
             "net_div")] + [
         (n, ctypes.c_int32) for n in (
-            "kernel", "beam_width", "component_n")]
+            "kernel", "beam_width", "component_n", "general")]
 
 
 class _KernelLeaves(ctypes.Structure):
@@ -731,7 +759,8 @@ def _kernel_params(params: EnvParams) -> _KernelParams:
         float(params.wirelength_normalizer),
         float(params.intersections_normalizer), _penalty(params),
         params.net_distribution + 1.0, KERNELS.index(kernel_name(params)),
-        int(params.reward_beam_width), params.component_n)
+        int(params.reward_beam_width), params.component_n,
+        int(needs_general(params)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -759,8 +788,9 @@ class FusedRollout:
 
     On leaves that lie on the CPU it runs ``rollout_chunk_reference``; on
     CUDA leaves it launches the CUDA kernel specialised for ``params``
-    (``kernel``), or raises. ``launches`` counts kernel launches and
-    nothing else. ``seed`` is a host int that must differ between calls.
+    (``kernel``; its general instantiation where ``general``), or raises.
+    ``launches`` counts kernel launches and nothing else. ``seed`` is a
+    host int that must differ between calls.
     """
 
     def __init__(self, params: EnvParams, batch: int, num_steps: int,
@@ -772,6 +802,7 @@ class FusedRollout:
         self.device = torch.device(device)
         self.widths = leaf_widths(params)
         self.kernel = kernel_name(params)
+        self.general = needs_general(params)
         self.launches = 0
         self._kparams = _kernel_params(params)
 

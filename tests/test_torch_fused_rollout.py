@@ -223,7 +223,7 @@ def test_fixtures_are_fresh(jax_zero_b128):
                        "min_num_components": 10, "max_num_components": 40,
                        "min_num_nets": 2, "max_num_nets": 10,
                        "min_num_pins_per_net": 2, "max_num_pins_per_net": 10},
-     ("components=40", "nets=10", "pins=100")),
+     ("components=40", "pins=100", "pins_per_component=25")),
 ])
 def test_unsupported_configs_raise(name, overrides, limits):
     params = load_env_params(name).replace(**overrides)

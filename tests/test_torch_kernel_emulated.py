@@ -21,6 +21,7 @@ from placement_tpu_torch.ops import _build
 from placement_tpu_torch.ops import fused_rollout as torch_fused
 from placement_tpu_torch.utils.config import load_env_params
 from tests.cuda_emu import emu
+from tests.test_torch_fused_envelope import EDGES
 
 #: seconds a case's emulated chunks may take (they take one or two)
 CASE_TIMEOUT = 120
@@ -103,6 +104,69 @@ def test_emulated_pin_kernel_matches_plain_version(emulated_library,
             # in another order
             np.testing.assert_allclose(rsum, want_r.numpy(), rtol=0,
                                        atol=1e-5)
+
+
+#: the general instantiations (a board as its bit string over the lanes, up
+#: to 24 nets and 48 pins per net): the envelope's edge configurations and
+#: label -> (config, overrides) beside them. Each runs 12 boards (10 for the
+#: reduced kernels: both leave a partial CUDA block), logical block 4, two
+#: chained chunks of 11 steps.
+GENERAL_CASES = {
+    **EDGES,
+    # the beam's pin keys and segments past coordinate 63, a 5-word board
+    "beam_2x72": ("rectangle_pin", {"height": 2, "width": 72,
+                                    "reward_type": "beam",
+                                    "reward_beam_width": 3}),
+    # the extra pins' water-fill over up to 12 nets, a beam of many nets
+    "varpin_nets12_beam": ("rectangle_pin", {
+        **EDGES["nets24_both"][1], "min_num_nets": 8, "max_num_nets": 12,
+        "min_num_pins_per_net": 2, "max_num_pins_per_net": 4,
+        "reward_type": "beam"}),
+    # a net's ranks and path positions on the second lane slot, varying
+    "ppn40_varpin_both": ("rectangle_pin", {
+        **EDGES["nets24_both"][1], "min_num_nets": 1, "max_num_nets": 1,
+        "min_num_pins_per_net": 30, "max_num_pins_per_net": 40,
+        "reward_type": "both", "reward_beam_width": 4}),
+    # a 32-word board
+    "pin_32x32_nets10": ("rectangle_pin", {
+        "height": 32, "width": 32, "min_num_nets": 10, "max_num_nets": 10,
+        "min_num_pins_per_net": 2, "max_num_pins_per_net": 2}),
+    "rect_1x144": ("rectangle", {
+        "height": 1, "width": 144, "min_component_h": 1,
+        "max_component_h": 1, "min_component_w": 1, "max_component_w": 3,
+        "min_num_components": 10, "max_num_components": 40}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GENERAL_CASES))
+def test_emulated_general_kernel_matches_plain_version(emulated_library,
+                                                       case):
+    config, overrides = GENERAL_CASES[case]
+    params = load_env_params(config).replace(**overrides)
+    assert torch_fused.supports(params) and torch_fused.needs_general(params)
+    batch = 12 if params.has_pins else 10
+    block, steps, seeds = 4, 11, [11, 12]
+    leaves = torch_fused.zero_leaves(params, batch, "cpu")
+    got = emu.run_chunks(emulated_library, torch_fused._kernel_params(params),
+                         torch_fused.leaves_to_numpy(leaves), seeds, steps,
+                         block, CASE_TIMEOUT)
+    for seed, (new, rsum, dcnt) in zip(seeds, got):
+        leaves, want_r, want_d = torch_fused.rollout_chunk_reference(
+            params, leaves, seed, steps, block)
+        want = torch_fused.leaves_to_numpy(leaves)
+        for k in torch_fused._LEAVES:
+            np.testing.assert_array_equal(new[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(dcnt, want_d.numpy())
+        if params.has_pins and params.reward_type != "beam":
+            # the centroid route's terms are added in another order
+            np.testing.assert_allclose(rsum, want_r.numpy(), rtol=0,
+                                       atol=1e-5)
+        else:
+            np.testing.assert_array_equal(rsum, want_r.numpy())
+    assert (got[0][2] >= 1).all()         # every zero board regenerated
+    if params.has_pins:
+        # some episodes were routed, not all penalties
+        assert (rsum != dcnt * np.float32(torch_fused._penalty(params))).any()
 
 
 def test_emulated_library_is_a_test_aid_only():
