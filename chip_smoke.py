@@ -44,7 +44,9 @@ entry points a user calls:
 Phases (any failure raises and the exit code is not 0):
   1. device  — requires CUDA; prints the card and its power limit
   2. build   — one nvcc per ops/csrc/*.cu, all at once, linked into
-     build/torch_kernels/; reports ``ptxas -v`` for every kernel
+     build/torch_kernels/; reports ``ptxas -v`` for every kernel, and the
+     general pin instantiations' registers and boards resident per SM
+     beside PR 14's
   3. TPU hardware goldens — k7 start, 128 boards, seed 1234, block 128: the
      rows of experiments/results/fused_hw_validation.json
   4. JAX goldens — zero start, 128 boards, seed 1234 (the varying-pins
@@ -61,11 +63,13 @@ Phases (any failure raises and the exit code is not 0):
      under each routing reward; the default instantiations' times and
      ``ptxas -v`` beside their recorded baseline
   5b. [envelope]: the general instantiations (up to 24 nets, 48 pins per
-     net, a side over 32 at area <= 144) on the seven edges of the JAX
+     net, a side over 32 at area <= 144) on the eight edges of the JAX
      kernel's envelope (tests/fixtures/torch_fused_zero_envelope_*.json):
      leaf hashes equal to the JAX kernel's at the fixture's size, kernel ==
      plain at 4096 boards (timed, with its bound), and the matrix tool's
-     fused row on each, its launches equal to its calls
+     fused row on each, its launches equal to its calls; three of them
+     timed under each routing reward; the flagship's rows forced onto the
+     general instantiation, leaves and time beside the default one's
   6. main path 1, timed; the kernel's launch count must equal the calls
   7. main path 2, the matrix; launch counts set to 0 before and read after:
      every specialisation must have launched; the square and rect rows'
@@ -241,8 +245,12 @@ JAX_GOLDENS = {
 #: general instantiations take (tests/test_torch_fused_envelope.py), each
 #: with its JAX golden (16 boards, block 8, two chained 20-step chunks)
 ENVELOPE_EDGES = ("web_nets10", "nets24_both", "ppn24_beam4", "ppn48_beam2",
-                  "wide_rect", "tall_square", "wide_pin")
+                  "wide_rect", "tall_square", "wide_pin", "web_nets10_both")
 ENVELOPE_BLOCK = 128
+#: the edges timed under each routing reward: what the general beam route
+#: costs beside the rest of a chunk
+SPLIT_EDGES = ("nets24_both", "ppn24_beam4", "ppn48_beam2",
+               "web_nets10_both")
 #: the edge whose numbers stand for each general instantiation in the
 #: kernels' line (the others are printed in [envelope]'s lines)
 GENERAL_ROWS = {"centroid": "web_nets10", "beam": "ppn24_beam4",
@@ -258,6 +266,11 @@ BASELINE_MS = {"pin_centroid": 0.32659, "pin_beam": 0.52797,
 BASELINE_PTXAS = {"centroid": (64, 40, 0), "beam": (64, 48, 4),
               "both": (64, 56, 12), "square": (40, 0, 0),
               "rect": (40, 0, 0)}
+#: the general pin instantiations as PR 14 built them (PERF.md §6; NVIDIA
+#: H100 80GB HBM3): registers, and the boards one SM held at once (8 a
+#: block; 3,168 of 4,096 boards resident for the beam, 2,112 for "both")
+GENERAL_PTXAS_PR14 = {"centroid": (70, 24), "beam": (80, 24),
+                      "both": (88, 16)}
 #: main path 3's ranks: chained seeds
 RANK_SEEDS = (1, 2)
 #: the kernels (one warp per board; 8 boards per CUDA block, the reduced
@@ -347,9 +360,12 @@ def _card():
 
 
 def phase_build():
-    """Builds the kernels; prints ``ptxas -v`` of every instantiation and
-    the default ones' (registers, stack frame, spill stores) beside their
-    recorded baseline (``BASELINE_PTXAS``)."""
+    """Builds the kernels; prints ``ptxas -v`` of every instantiation, the
+    default ones' (registers, stack frame, spill stores) beside their
+    recorded baseline (``BASELINE_PTXAS``), and the general pin ones'
+    registers and boards resident per SM beside PR 14's
+    (``GENERAL_PTXAS_PR14``)."""
+    import torch
     from placement_tpu_torch.ops import _build, fused_rollout
     lib, seconds = _build.build()
     fused_rollout.kernel_library()
@@ -378,6 +394,16 @@ def phase_build():
         got = (got.get("regs"), got.get("stack"), got.get("spill"))
         print(f"[build] {k}: (registers, stack frame B, spill stores B) "
               f"{got} (baseline {want}; same {got == want})")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for k, (regs, boards) in GENERAL_PTXAS_PR14.items():
+        params = _row(KERNELS[k][0])[0]
+        got = usage.get(f"{k}_general", {})
+        now = {g: fused_rollout.boards_per_sm(params, g) for g in (False, True)}
+        print(f"[build] {k}_general: {got.get('regs')} registers, "
+              f"{got.get('stack')} B stack frame, {got.get('spill')} B spill "
+              f"stores (PR 14: {regs} registers); {now[True]} boards "
+              f"resident per SM, {now[True] * sms} on {sms} SMs (PR 14: "
+              f"{boards}, {boards * sms}); the default one {now[False]}")
 
 
 def phase_hw_golden(kernel):
@@ -613,8 +639,9 @@ def phase_envelope():
     kernel's recorded ones at the fixture's size; kernel == plain at
     ``BATCH`` boards, two chained chunks, timed; then the matrix tool's
     fused row on it (``bench_matrix.measure``, the user's entry point),
-    whose launches count. Then three default rows on the general
-    instantiation: their time beside the default one's, leaves equal.
+    whose launches count; ``SPLIT_EDGES`` timed under each routing reward.
+    Then three default rows on the general instantiation: their time
+    beside the default one's, leaves equal.
     Returns name -> (kernel, err, ms, plain ms, bound ms, bound_by,
     launches)."""
     import torch
@@ -639,6 +666,8 @@ def phase_envelope():
         _check(row["launches"] == row["calls"], f"{name}: matrix row "
                                                 "missed the kernel")
         out[name] = (row["kernel"], *got, row["launches"])
+        if name in SPLIT_EDGES:
+            phase_reward_split(f"envelope {name}", params, ENVELOPE_BLOCK)
     # what the default instantiation saves where both run: the flagship's
     # rows on the general one, leaves equal to the default one's
     for row in ("pin_centroid", "pin_beam", "rect"):

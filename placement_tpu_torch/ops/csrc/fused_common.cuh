@@ -159,3 +159,7 @@ int fused_rollout_warp_launch(const FusedRolloutParams& p,
                               const FusedRolloutLeaves& out, float* rsum,
                               int32_t* dcnt, int batch, int num_steps,
                               int block, uint32_t seed, cudaStream_t stream);
+
+// Boards of the pin kernel's instantiation that p selects one SM holds at
+// once (the runtime's occupancy for its block), or -1 on an error.
+int fused_rollout_warp_boards_per_sm(const FusedRolloutParams& p);

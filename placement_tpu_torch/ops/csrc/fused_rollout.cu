@@ -303,6 +303,13 @@ int fused_rollout_capacity(const char* what) {
   return -1;
 }
 
+// Boards of the pin kernel's instantiation that `params` selects (the
+// general one where params->general) one SM holds at once, or -1.
+int fused_rollout_boards_per_sm(const FusedRolloutParams* params) {
+  return params->kernel <= K_BOTH ? fused_rollout_warp_boards_per_sm(*params)
+                                  : -1;
+}
+
 // Launches the chunk's specialisation `params->kernel` on `stream` and
 // returns cudaGetLastError() (0 = ok). Does not synchronise; allocates
 // nothing.

@@ -60,8 +60,13 @@
 // one takes the JAX kernel's whole envelope: the board as its bit string
 // over the lanes (fused_warp.cuh's flat layout, a side may pass 32), a net's
 // ranks 32.. on a second lane slot in the allocation, and the beam search
-// one net a turn on the whole warp (beam_wl_int_general: pin j on lane
-// j % 32, slot j / 32, coordinates up to 254), at up to 128 registers.
+// of every net at once on two lane slots (beam_wl_int_general: nets of up
+// to 16 pins on segments of a slot, of 17-32 one a slot, of more over both
+// slots; a net's reductions a redux.sync each or a segment's shuffle tree;
+// coordinates up to 254). The general beam and "both" ones hold 64
+// registers like the default ones (their spills cost less than the second
+// wave of boards that 80-88 registers took); the general centroid one, at
+// up to 128 registers, does not yet.
 // Every f32 sum whose order the plain version fixes is still taken in that
 // order (the wirelength over pins, or over nets and path positions, the
 // allocation's weights, the softmax total and cumulative probabilities, the
@@ -84,7 +89,7 @@ namespace {
 constexpr int WARPS = 8;                 // boards per block
 constexpr int BLOCK_THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS = 4;            // 64 registers a thread
-constexpr int MIN_BLOCKS_GENERAL = 2;    // 128: the general beam's state
+constexpr int MIN_BLOCKS_GENERAL = 2;    // 128: the general centroid
 
 static_assert(MAX_P <= 64 && MAX_M <= 64, "two pin slots per lane");
 static_assert(MAX_C <= 32 && MAX_N <= 32, "a lane per component and net");
@@ -522,275 +527,411 @@ __device__ void beam_wl_int(const FusedRolloutParams& p, const WarpBoard& b,
 
 // ---- the general instantiation's beam route (nets of up to 48 pins) ------
 
-// The min of v over the warp, on every lane.
-template <class T>
-__device__ __forceinline__ T warp_min(T v) {
-  for (int d = 16; d >= 1; d >>= 1) {
-    const T o = __shfl_xor_sync(FULL, v, d);
-    v = o < v ? o : v;
+// The general beam route's lane layouts. A lane holds two positions, its
+// slots 0 and 1, and every net of a board is routed at once:
+//   * SEGMENTS (M <= 16 pins a net): a net on a segment of M lanes of one
+//     slot, its pin rank j on lane base + j; G = 32 / M segments a slot,
+//     net s G + g on segment g of slot s. The lanes past a slot's last
+//     segment form a segment of no net. 2G >= N whenever N * M <= MAX_P.
+//   * SLOTS (17-32 pins): net s on slot s, rank j on lane j (N <= 2).
+//   * SPAN (more pins: one net): rank j on lane j % 32, slot j / 32.
+enum BeamMode { SEGMENTS, SLOTS, SPAN };
+
+constexpr bool all_nets_at_once(int m = 1) {
+  return m > 16 || (2 * (32 / m) >= MAX_P / m && all_nets_at_once(m + 1));
+}
+static_assert(all_nets_at_once() && MAX_P / 17 <= 2 && MAX_P / 33 <= 1 &&
+                  MAX_M <= 64,
+              "every net of a board in one layout, a rank in 6 bits");
+
+// A search key: a pin's squared distance from a beam's last pin, then its
+// rank j (6 bits). Coordinates are integers up to 254, so the squared
+// distance is an integer below 2^17 on which sqrt is strictly increasing
+// and one-to-one in f32: the key's order is that of (the f32 distance, j),
+// first wins. A pin the beam has visited (or no pin) keys after every
+// distance, in rank order; a pin off the net, or taken, never wins.
+constexpr uint32_t VISITED = 1u << 23;
+constexpr uint32_t NO_KEY = ~0u;
+static_assert(2 * 254 * 254 < (1 << 17), "a squared distance in 17 bits");
+
+enum ReduceOp { R_MIN, R_MAX, R_ADD };
+
+template <int OP>
+__device__ __forceinline__ uint32_t reduce_op(uint32_t a, uint32_t b) {
+  if constexpr (OP == R_MIN) return min(a, b);
+  if constexpr (OP == R_MAX) return max(a, b);
+  return a + b;
+}
+
+template <int OP>
+__device__ __forceinline__ uint32_t warp_reduce(uint32_t v) {
+  if constexpr (OP == R_MIN) return __reduce_min_sync(FULL, v);
+  if constexpr (OP == R_MAX) return __reduce_max_sync(FULL, v);
+  return __reduce_add_sync(FULL, v);
+}
+
+// Reduces each v[i][s] (i < n) over its slot's net, onto every lane of it.
+// SPAN folds the two slots into one redux over the warp; SLOTS takes one
+// redux a slot over the warp, the lanes past the net holding the
+// identity; SEGMENTS a tree towards each segment's first lane (jl = lane -
+// base), all values' trees side by side, then that lane's broadcast: a
+// redux on a segment's lanes alone runs once for each segment.
+template <int MODE, int OP, int K>
+__device__ __forceinline__ void net_reduce(uint32_t (&v)[K][2], int n,
+                                           int LM, int jl, int base) {
+  if constexpr (MODE == SPAN) {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      if (i < n)
+        v[i][0] = v[i][1] = warp_reduce<OP>(reduce_op<OP>(v[i][0], v[i][1]));
+  } else if constexpr (MODE == SLOTS) {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        if (i < n) v[i][s] = warp_reduce<OP>(v[i][s]);
+  } else {
+    for (int d = 1; d < LM; d <<= 1) {
+      const bool in = jl + d < LM;
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          if (i >= n) continue;
+          const uint32_t o = __shfl_down_sync(FULL, v[i][s], d);
+          if (in) v[i][s] = reduce_op<OP>(v[i][s], o);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        if (i < n) v[i][s] = __shfl_sync(FULL, v[i][s], base);
   }
-  return v;
 }
 
-// The first pin j (lane j % 32, slot j / 32) where `hit` holds, 0 if none.
-__device__ __forceinline__ int first_pin(bool hit0, bool hit1) {
-  const uint32_t b0 = __ballot_sync(FULL, hit0);
-  const uint32_t b1 = __ballot_sync(FULL, hit1);
-  return b0 ? __ffs(b0) - 1 : (b1 ? 31 + __ffs(b1) : 0);
+// Slot s's v at pin rank r[s] of the slot's net (r[s] < M; it may differ
+// from lane to lane): lane base + r[s] of slot s, or rank r[s] over both
+// slots when the net spans them. SAME: r[0] == r[1] (a beam's last pin),
+// read once.
+template <int MODE, bool SAME>
+__device__ __forceinline__ void pin_at(const int (&v)[2], const int (&r)[2],
+                                       int base, int (&out)[2]) {
+  if constexpr (MODE == SPAN) {
+#pragma unroll
+    for (int s = 0; s < (SAME ? 1 : 2); ++s) {
+      const int lo = __shfl_sync(FULL, v[0], r[s] & 31);
+      const int hi = __shfl_sync(FULL, v[1], r[s] & 31);
+      out[s] = r[s] < 32 ? lo : hi;
+    }
+    if (SAME) out[1] = out[0];
+  } else {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) out[s] = __shfl_sync(FULL, v[s], base + r[s]);
+  }
 }
 
-// The value of a pin-indexed pair at pin j (uniform j < 64).
-__device__ __forceinline__ float pin_at(const float (&v)[2], int j) {
-  const float lo = __shfl_sync(FULL, v[0], j & 31);
-  const float hi = __shfl_sync(FULL, v[1], j & 31);
-  return j < 32 ? lo : hi;
+// 1 in each byte of v that is 0, else 0.
+__device__ __forceinline__ uint32_t zero_bytes(uint32_t v) {
+  const uint32_t t = (v & 0x7f7f7f7fu) + 0x7f7f7f7fu;
+  return ~(t | v | 0x7f7f7f7fu) >> 7;
 }
 
-// beam_wl_int for any net of up to MAX_M pins and coordinates up to 254:
-// the same search, tie rules and sums, one net a turn on the whole warp.
-// Net rank j's pin, its candidate of each beam, whether each beam has
-// visited it and each beam's path position j live on lane j % 32, slot
-// j / 32; a beam's last pin takes a byte of `curs`, the pin's key 16 bits
-// of the selection key, the winning pin 6 bits of `sel`.
+// The beam routes of every net of the board (see beam_wl_int_general):
+// writes each net's segments to segs[n * M + t] and returns the
+// wirelength. `pin` holds a pin's net + 1 (0 where it is not routed) and
+// its coordinates, a byte each; lane n: net n's pin count and first pin.
+//
+// A net's beams are held on its lanes: cost, last pin (a byte each of
+// `curs`) and path rank (2 bits each of `ranks`), uniform over the net;
+// on rank j's position, byte k of `path` = beam k's pin at path position
+// j, byte k of `visb` = 1 where beam k has visited (or has no) pin j. A
+// round finds the c-th nearest untaken pin of every beam at once: for each
+// c, one reduction (net_reduce) of the search keys per beam and slot, side
+// by side. It then keeps the bw best candidates one after another, each
+// the net's min of (cost, parent rank, pin key, parent k, c) as two
+// reductions: the cost's bits, then, among the lanes that hold that cost,
+// the rest in a word (rk << 26 | pin key << 10 | k << 8 | c << 6 | j). The
+// pin's rank j last leaves the order as it is (the fields before it are
+// unique already) and names the winner's lane. A new beam's path and
+// visited pins are its parent's bytes, permuted.
+template <int MODE>
+__device__ float beam_nets(const FusedRolloutParams& p, const int (&pin)[2],
+                           int cnt_l, int start_l, int lane, int* segs) {
+  const int N = p.nets, M = p.pins_per_net, bw = p.beam_width;
+  // lanes a segment, segments a slot, this lane's segment and first lane
+  const int LM = MODE == SEGMENTS ? M : 32, G = 32 / LM, g = lane / LM;
+  const int base = g * LM, jl = lane - base;
+
+  // slot s: net n[s], its pin of rank j[s] (table position start + j)
+  int n[2], j[2], lim[2], x[2], y[2];
+  bool inseg[2], present[2];
+  uint32_t sxy[1][2];
+  float denom[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    n[s] = MODE == SPAN ? 0 : s * G + g;
+    j[s] = MODE == SPAN ? lane + 32 * s : jl;
+    const bool seg = g < G, net = seg && n[s] < N;
+    inseg[s] = seg && j[s] < M;
+    const int cnt_n = __shfl_sync(FULL, cnt_l, n[s] & 31);
+    const int st = __shfl_sync(FULL, start_l, n[s] & 31);
+    const int cnt = net ? cnt_n : 0;
+    lim[s] = min(cnt, M);
+    const int q = (net ? st : 0) + j[s];
+    const int lo = __shfl_sync(FULL, pin[0], q & 31);
+    const int hi = __shfl_sync(FULL, pin[1], q & 31);
+    const int got = q < 32 ? lo : hi;
+    const bool has = net && inseg[s] && q < 64 && (got >> 16) == n[s] + 1;
+    x[s] = has ? (got >> 8) & 0xff : 0;
+    y[s] = has ? got & 0xff : 0;
+    present[s] = j[s] < lim[s];
+    sxy[0][s] = present[s] ? (uint32_t)(x[s] << 16 | y[s]) : 0u;
+    denom[s] = (float)max(cnt, 1);
+  }
+
+  // start: the pin farthest from the net centroid, first wins (coordinate
+  // sums are small integers, exact in any order; x's and y's share a
+  // word); a distance as its bits + 1, 0 where there is no pin
+  net_reduce<MODE, R_ADD>(sxy, 1, LM, jl, base);
+  uint32_t far[2], fmax[1][2], first[1][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const float cx = (float)(sxy[0][s] >> 16) / denom[s];
+    const float cy = (float)(sxy[0][s] & 0xffffu) / denom[s];
+    const float ex = (float)x[s] - cx, ey = (float)y[s] - cy;
+    far[s] = fmax[0][s] =
+        present[s] ? __float_as_uint(sqrtf(ex * ex + ey * ey)) + 1u : 0u;
+  }
+  net_reduce<MODE, R_MAX>(fmax, 1, LM, jl, base);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) first[0][s] = far[s] == fmax[0][s] ? j[s] : 63u;
+  net_reduce<MODE, R_MIN>(first, 1, LM, jl, base);
+  const uint32_t start[2] = {first[0][0], first[0][1]};
+
+  float cost[2][MAX_BW];
+  uint32_t curs[2], ranks[2], path[2], visb[2], kj[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int k = 0; k < MAX_BW; ++k) cost[s][k] = k == 0 ? 0.f : BIG;
+    curs[s] = start[s] * 0x01010101u;
+    ranks[s] = 0u;
+    path[s] = j[s] == 0 ? start[s] * 0x01010101u : 0u;
+    visb[s] = (j[s] == (int)start[s] || !present[s]) ? 0x01010101u : 0u;
+    // the pin's key (the order of x * 32768 + y) and rank, in place
+    kj[s] = (uint32_t)((x[s] + 1) << 8 | (y[s] + 1)) << 10 | (uint32_t)j[s];
+  }
+  const int rounds = (int)__reduce_max_sync(
+      FULL, (unsigned)max(max(lim[0], lim[1]) - 1, 0));
+
+  for (int step = 0; step < rounds; ++step) {
+    const bool active[2] = {step + 1 <= lim[0] - 1, step + 1 <= lim[1] - 1};
+    // each position's search key for each beam
+    uint32_t dk[2][MAX_BW];
+#pragma unroll
+    for (int k = 0; k < MAX_BW; ++k) {
+      dk[0][k] = dk[1][k] = NO_KEY;
+      if (k >= bw) continue;
+      const int cur[2] = {(int)(curs[0] >> (8 * k)) & 0xff,
+                          (int)(curs[1] >> (8 * k)) & 0xff};
+      int cx[2], cy[2];
+      pin_at<MODE, true>(x, cur, base, cx);
+      pin_at<MODE, true>(y, cur, base, cy);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int dx = x[s] - cx[s], dy = y[s] - cy[s];
+        const uint32_t d2 = (uint32_t)(dx * dx + dy * dy);
+        if (inseg[s])
+          dk[s][k] = ((visb[s] >> (8 * k)) & 1u ? VISITED : d2 << 6) |
+                     (uint32_t)j[s];
+      }
+    }
+    // candidates: the c-th nearest pin not taken yet of every beam at once;
+    // bits 3k of cn[s]: 4 | c where this position is beam k's c-th
+    uint32_t cn[2] = {0u, 0u};
+    for (int c = 0; c < bw; ++c) {
+      uint32_t m[MAX_BW][2];
+#pragma unroll
+      for (int k = 0; k < MAX_BW; ++k)
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          m[k][s] = (cn[s] >> (3 * k)) & 4u ? NO_KEY : dk[s][k];
+      net_reduce<MODE, R_MIN>(m, bw, LM, jl, base);
+#pragma unroll
+      for (int k = 0; k < MAX_BW; ++k)
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          if (k < bw && m[k][s] != NO_KEY && m[k][s] == dk[s][k])
+            cn[s] |= (4u | (uint32_t)c) << (3 * k);
+    }
+    // each position's candidate cost for each beam (NO_CAND where none): the
+    // parent's cost plus the distance, BIG from a visited pin
+    float cc[2][MAX_BW];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int k = 0; k < MAX_BW; ++k) {
+        cc[s][k] = NO_CAND;
+        if (k >= bw || !((cn[s] >> (3 * k)) & 4u)) continue;
+        const float d = dk[s][k] >= VISITED
+                            ? BIG
+                            : sqrtf((float)(dk[s][k] >> 6));
+        const float ccost = cost[s][k] + d;
+        cc[s][k] = ccost >= BIG ? BIG : ccost;
+      }
+    // keep the bw best: new beam k2 is the candidate of key rank k2;
+    // sel[s][k2] = its key's low word
+    uint32_t sel[2][MAX_BW];
+#pragma unroll
+    for (int k2 = 0; k2 < MAX_BW; ++k2) {
+      sel[0][k2] = sel[1][k2] = 0u;
+      if (k2 >= bw) continue;
+      uint32_t hi[2], lo[2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        float bc = NO_CAND;
+#pragma unroll
+        for (int k = 0; k < MAX_BW; ++k)
+          if (k < bw) bc = fminf(bc, cc[s][k]);
+        uint32_t low = ~0u;
+#pragma unroll
+        for (int k = 0; k < MAX_BW; ++k)
+          if (k < bw && cc[s][k] == bc)
+            low = min(low, ((ranks[s] >> (2 * k)) & 3u) << 26 |
+                               (uint32_t)k << 8 |
+                               ((cn[s] >> (3 * k)) & 3u) << 6);
+        hi[s] = __float_as_uint(bc);
+        lo[s] = low | kj[s];
+      }
+      uint32_t wh[1][2] = {{hi[0], hi[1]}};
+      net_reduce<MODE, R_MIN>(wh, 1, LM, jl, base);
+      uint32_t wlo[1][2] = {{hi[0] == wh[0][0] ? lo[0] : ~0u,
+                             hi[1] == wh[0][1] ? lo[1] : ~0u}};
+      net_reduce<MODE, R_MIN>(wlo, 1, LM, jl, base);
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int jj = (int)(wlo[0][s] & 63u), kp = (int)(wlo[0][s] >> 8) & 3;
+#pragma unroll
+        for (int k = 0; k < MAX_BW; ++k)
+          if (j[s] == jj && k == kp) cc[s][k] = NO_CAND;
+        sel[s][k2] = wlo[0][s];
+        if (active[s]) cost[s][k2] = __uint_as_float(wh[0][s]);
+      }
+    }
+    // the new beams' ranks, last pins, paths and visited pins: byte k2 of
+    // `parent` = new beam k2's parent
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (!active[s]) continue;
+      uint32_t parent = 0u, ncurs = 0u, nranks = 0u;
+#pragma unroll
+      for (int k2 = 0; k2 < MAX_BW; ++k2) {
+        if (k2 >= bw) continue;
+        const uint32_t pk = sel[s][k2] >> 10;  // parent rank, pin key
+        uint32_t r = 0u;
+#pragma unroll
+        for (int k3 = 0; k3 < MAX_BW; ++k3)
+          r += k3 < bw && (sel[s][k3] >> 10) < pk;
+        nranks |= r << (2 * k2);
+        parent |= ((sel[s][k2] >> 8) & 3u) << (4 * k2);
+        ncurs |= (sel[s][k2] & 63u) << (8 * k2);
+      }
+      const uint32_t pbytes = __byte_perm(path[s], 0u, parent);
+      path[s] = j[s] <= step ? pbytes : (j[s] == step + 1 ? ncurs : 0u);
+      visb[s] = __byte_perm(visb[s], 0u, parent) |
+                zero_bytes(ncurs ^ (uint32_t)j[s] * 0x01010101u);
+      curs[s] = ncurs;
+      ranks[s] = nranks;
+    }
+  }
+
+  // the route: each net's best beam by (cost, path rank), first wins;
+  // path position j[s]'s pin, and the next position's
+  int rl[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    int best = 0;
+    float bc = cost[s][0];
+    uint32_t br = ranks[s] & 3u;
+#pragma unroll
+    for (int k = 1; k < MAX_BW; ++k) {
+      const uint32_t rk = (ranks[s] >> (2 * k)) & 3u;
+      if (k < bw && (cost[s][k] < bc || (cost[s][k] == bc && rk < br))) {
+        best = k;
+        bc = cost[s][k];
+        br = rk;
+      }
+    }
+    rl[s] = (int)(path[s] >> (8 * best)) & 0xff;
+  }
+  int rx[2], ry[2], rx2[2], ry2[2];
+  pin_at<MODE, false>(x, rl, base, rx);
+  pin_at<MODE, false>(y, rl, base, ry);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    rx2[s] = __shfl_down_sync(FULL, rx[s], 1);
+    ry2[s] = __shfl_down_sync(FULL, ry[s], 1);
+  }
+  if (MODE == SPAN) {  // position 31's next is slot 1's first
+    const int wrap_x = __shfl_sync(FULL, rx[1], 0);
+    const int wrap_y = __shfl_sync(FULL, ry[1], 0);
+    if (lane == 31) {
+      rx2[0] = wrap_x;
+      ry2[0] = wrap_y;
+    }
+  }
+  float term[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const bool sv = j[s] + 1 <= lim[s] - 1;
+    const int ddx = rx[s] - rx2[s], ddy = ry[s] - ry2[s];
+    term[s] = sv ? sqrtf((float)(ddx * ddx + ddy * ddy)) : 0.f;
+    if (inseg[s] && n[s] < N)  // endpoints a byte each, as pack_seg
+      segs[n[s] * M + j[s]] =
+          sv ? rx[s] | ry[s] << 8 | rx2[s] << 16 | ry2[s] << 24 : NO_SEG;
+  }
+  // the wirelength, nets outer, positions inner (adding +0 past a net's
+  // last segment is exact)
+  float wl = 0.f;
+  for (int u = 0, gu = 0; u < N; ++u, gu = gu + 1 == G ? 0 : gu + 1) {
+    for (int t = 0; t < rounds; ++t) {  // net u: slot u / G, segment gu
+      const bool hi = MODE == SPAN ? t >= 32 : u >= G;
+      wl += __shfl_sync(FULL, hi ? term[1] : term[0], (gu * LM + t) & 31);
+    }
+  }
+  return wl;
+}
+
+// beam_wl_int for nets of up to MAX_M pins and coordinates up to 254: the
+// same search, tie rules and sums, every net at once (beam_nets), then the
+// crossings.
 __device__ void beam_wl_int_general(const FusedRolloutParams& p,
                                     const WarpBoard& b, int lane, int* segs,
                                     float& wl_out, int& ints_out) {
-  const int N = p.nets, M = p.pins_per_net, P = p.pins, bw = p.beam_width;
-  // a pin's net, or -1 where it is not routed
-  int net_on[2];
+  const int N = p.nets, M = p.pins_per_net, P = p.pins;
+  // a pin's net + 1 (0 where it is not routed) and its coordinates
+  int pin[2];
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     const int q = lane + 32 * s, n = b.pnet[s];
-    net_on[s] = (q < P && q < b.npin && n >= 0 && n < N) ? n : -1;
+    const bool on = q < P && q < b.npin && n >= 0 && n < N;
+    pin[s] = on ? (n + 1) << 16 | (b.pax[s] & 0xff) << 8 | (b.pay[s] & 0xff)
+                : 0;
   }
   // lane n: net n's pin count and first pin
   int cnt_l = 0;
   for (int n = 0; n < N; ++n) {
-    const int c = warp_sum((net_on[0] == n) + (net_on[1] == n));
+    const int c = warp_sum(((pin[0] >> 16) == n + 1) +
+                           ((pin[1] >> 16) == n + 1));
     if (lane == n) cnt_l = c;
   }
   const int start_l = warp_scan(cnt_l, lane, N) - cnt_l;
   __syncwarp();  // the generator's reads of the shared slice are done
-
-  float wl = 0.f;
-  for (int n = 0; n < N; ++n) {
-    const int cnt = __shfl_sync(FULL, cnt_l, n);
-    const int st = __shfl_sync(FULL, start_l, n);
-    const int lim = min(cnt, M);
-    // rank j = lane + 32 s: the net's pin at table position st + j
-    float x[2], y[2];
-    uint32_t key[2];
-    bool inseg[2], present[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int j = lane + 32 * s, q = st + j, src = q & 31;
-      const int n_lo = __shfl_sync(FULL, net_on[0], src);
-      const int n_hi = __shfl_sync(FULL, net_on[1], src);
-      const int x_lo = __shfl_sync(FULL, b.pax[0], src);
-      const int x_hi = __shfl_sync(FULL, b.pax[1], src);
-      const int y_lo = __shfl_sync(FULL, b.pay[0], src);
-      const int y_hi = __shfl_sync(FULL, b.pay[1], src);
-      const bool hi = q >= 32;
-      inseg[s] = j < M;
-      const bool has = inseg[s] && q < 64 && (hi ? n_hi : n_lo) == n;
-      x[s] = has ? (float)(hi ? x_hi : x_lo) : 0.f;
-      y[s] = has ? (float)(hi ? y_hi : y_lo) : 0.f;
-      // the pin's key: the order of x * 32768 + y
-      key[s] = (uint32_t)(((int)x[s] + 1) << 8 | ((int)y[s] + 1));
-      present[s] = j < lim;
-    }
-
-    // start: the pin farthest from the net centroid (coordinate sums are
-    // small integers, exact in any order)
-    const int sxi = warp_sum((present[0] ? (int)x[0] : 0) +
-                             (present[1] ? (int)x[1] : 0));
-    const int syi = warp_sum((present[0] ? (int)y[0] : 0) +
-                             (present[1] ? (int)y[1] : 0));
-    const float denom = (float)max(cnt, 1);
-    const float cx = (float)sxi / denom, cy = (float)syi / denom;
-    float d0[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const float ex = x[s] - cx, ey = y[s] - cy;
-      d0[s] = present[s] ? sqrtf(ex * ex + ey * ey) : -1.f;
-    }
-    const float dmax = -warp_min(-fmaxf(d0[0], d0[1]));
-    const int start = first_pin(d0[0] == dmax, d0[1] == dmax);
-
-    // the beams: cost, last pin (a byte each), path rank (2 bits each);
-    // pin j: byte k of path[s] = beam k's pin at path position j, bit k of
-    // visb[s] = beam k has visited (or has no) pin j
-    float cost[MAX_BW];
-#pragma unroll
-    for (int k = 0; k < MAX_BW; ++k) cost[k] = k == 0 ? 0.f : BIG;
-    uint32_t curs = (uint32_t)start * 0x01010101u, ranks = 0u;
-    uint32_t path[2], visb[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int j = lane + 32 * s;
-      path[s] = j == 0 ? (uint32_t)start * 0x01010101u : 0u;
-      visb[s] = (j == start || !present[s]) ? 0xfu : 0u;
-    }
-    const int rounds = max(lim - 1, 0);
-
-    for (int step = 0; step < rounds; ++step) {
-      // each pin's candidate of each beam: cost, nearest-pin rank c
-      float cc[2][MAX_BW];
-      uint32_t cn[2] = {0u, 0u};
-#pragma unroll
-      for (int k = 0; k < MAX_BW; ++k) {
-        cc[0][k] = cc[1][k] = NO_CAND;
-        if (k >= bw) continue;
-        const int cur = (int)(curs >> (8 * k)) & 0xff;
-        const float curx = pin_at(x, cur), cury = pin_at(y, cur);
-        float d[2];
-        bool taken[2] = {false, false};
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          const float dx = x[s] - curx, dy = y[s] - cury;
-          d[s] = (visb[s] >> k) & 1u ? BIG : sqrtf(dx * dx + dy * dy);
-        }
-        for (int c = 0; c < bw; ++c) {
-          // the nearest pin not taken yet, first wins; no pin past M
-          const float e0 = !inseg[0] || taken[0] ? INF2 : d[0];
-          const float e1 = !inseg[1] || taken[1] ? INF2 : d[1];
-          const float m = warp_min(fminf(e0, e1));
-          const int jj = first_pin(e0 == m, e1 == m);
-          if (m < INF2 && lane == (jj & 31)) {
-            const int s = jj >> 5;
-            const float ccost = cost[k] + m;
-            const float v = ccost >= BIG ? BIG : ccost;
-            if (s == 0) {
-              taken[0] = true;
-              cc[0][k] = v;
-              cn[0] |= (uint32_t)c << (2 * k);
-            } else {
-              taken[1] = true;
-              cc[1][k] = v;
-              cn[1] |= (uint32_t)c << (2 * k);
-            }
-          }
-        }
-      }
-      // keep the bw best: new beam k2 is the candidate of rank k2, found as
-      // the warp's min key; sel[k2] = its key's low bits (the parent's
-      // rank, the new pin's key, the parent k, c) and its pin at bit 22
-      uint32_t sel[MAX_BW];
-#pragma unroll
-      for (int k2 = 0; k2 < MAX_BW; ++k2) {
-        sel[k2] = 0u;
-        if (k2 >= bw) continue;
-        uint64_t mine = ~0ull;
-        int mine_s = 0;
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-#pragma unroll
-          for (int k = 0; k < MAX_BW; ++k) {
-            if (k >= bw || cc[s][k] > BIG) continue;
-            const uint32_t rk = (ranks >> (2 * k)) & 3u;
-            const uint32_t lo = rk << 20 | key[s] << 4 | (uint32_t)k << 2 |
-                                ((cn[s] >> (2 * k)) & 3u);
-            const uint64_t o = (uint64_t)__float_as_uint(cc[s][k]) << 32 | lo;
-            if (o < mine) {
-              mine = o;
-              mine_s = s;
-            }
-          }
-        }
-        const uint64_t w = warp_min(mine);
-        const int win = max(__ffs(__ballot_sync(FULL, mine == w)) - 1, 0);
-        const int ws = __shfl_sync(FULL, mine_s, win);
-        const int kp = (int)(w >> 2) & 3;
-#pragma unroll
-        for (int s = 0; s < 2; ++s)
-#pragma unroll
-          for (int k = 0; k < MAX_BW; ++k)
-            if (lane == win && s == ws && k == kp) cc[s][k] = NO_CAND;
-        sel[k2] = ((uint32_t)w & 0x3fffffu) | (uint32_t)(win + 32 * ws) << 22;
-        cost[k2] = __uint_as_float((uint32_t)(w >> 32));
-      }
-      // the new beams' ranks, last pins, paths and visited pins
-      uint32_t nranks = 0u, ncurs = 0u, npath[2] = {0u, 0u};
-      uint32_t nvisb[2] = {0u, 0u};
-#pragma unroll
-      for (int k2 = 0; k2 < MAX_BW; ++k2) {
-        if (k2 >= bw) continue;
-        const uint32_t pk = (sel[k2] >> 4) & 0x3ffffu;  // parent rank, key
-        uint32_t r = 0u;
-#pragma unroll
-        for (int k3 = 0; k3 < MAX_BW; ++k3)
-          r += k3 < bw && ((sel[k3] >> 4) & 0x3ffffu) < pk;
-        const int par = (int)(sel[k2] >> 2) & 3;
-        const uint32_t jj = sel[k2] >> 22;
-        nranks |= r << (2 * k2);
-        ncurs |= jj << (8 * k2);
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          const int j = lane + 32 * s;
-          const uint32_t pbyte = (path[s] >> (8 * par)) & 0xffu;
-          const uint32_t byte =
-              j <= step ? pbyte : (j == step + 1 ? jj : 0u);
-          npath[s] |= byte << (8 * k2);
-          nvisb[s] |= (((visb[s] >> par) & 1u) | (uint32_t)(j == (int)jj))
-                      << k2;
-        }
-      }
-      ranks = nranks;
-      curs = ncurs;
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        path[s] = npath[s];
-        visb[s] = nvisb[s];
-      }
-    }
-
-    // the route: the best beam by (cost, path rank), first wins
-    int best = 0;
-    float bc = cost[0];
-    uint32_t br = ranks & 3u;
-#pragma unroll
-    for (int k = 1; k < MAX_BW; ++k) {
-      const uint32_t rk = (ranks >> (2 * k)) & 3u;
-      if (k < bw && (cost[k] < bc || (cost[k] == bc && rk < br))) {
-        best = k;
-        bc = cost[k];
-        br = rk;
-      }
-    }
-    // path position t = lane + 32 s: its pin, and the next position's
-    float rx[2], ry[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int rl = (int)(path[s] >> (8 * best)) & 0xff;
-      const float xl = __shfl_sync(FULL, x[0], rl & 31);
-      const float xh = __shfl_sync(FULL, x[1], rl & 31);
-      const float yl = __shfl_sync(FULL, y[0], rl & 31);
-      const float yh = __shfl_sync(FULL, y[1], rl & 31);
-      rx[s] = rl < 32 ? xl : xh;
-      ry[s] = rl < 32 ? yl : yh;
-    }
-    const float wrap_x = __shfl_sync(FULL, rx[1], 0);
-    const float wrap_y = __shfl_sync(FULL, ry[1], 0);
-    const float down_x0 = __shfl_down_sync(FULL, rx[0], 1);
-    const float down_y0 = __shfl_down_sync(FULL, ry[0], 1);
-    const float rx2[2] = {lane == 31 ? wrap_x : down_x0,
-                          __shfl_down_sync(FULL, rx[1], 1)};
-    const float ry2[2] = {lane == 31 ? wrap_y : down_y0,
-                          __shfl_down_sync(FULL, ry[1], 1)};
-    float term[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int t = lane + 32 * s;
-      const bool sv = t + 1 <= lim - 1;
-      const float ddx = rx[s] - rx2[s], ddy = ry[s] - ry2[s];
-      term[s] = sv ? sqrtf(ddx * ddx + ddy * ddy) : 0.f;
-      if (t < M)
-        segs[n * M + t] = sv ? pack_seg(rx[s], ry[s], rx2[s], ry2[s]) : NO_SEG;
-    }
-    // the wirelength, nets outer, positions inner
-    for (int t = 0; t < rounds; ++t)
-      wl += __shfl_sync(FULL, t < 32 ? term[0] : term[1], t & 31);
-  }
+  const float wl =
+      M > 32   ? beam_nets<SPAN>(p, pin, cnt_l, start_l, lane, segs)
+      : M > 16 ? beam_nets<SLOTS>(p, pin, cnt_l, start_l, lane, segs)
+               : beam_nets<SEGMENTS>(p, pin, cnt_l, start_l, lane, segs);
   __syncwarp();
 
   // crossings of segments on different nets: segment a broadcast from
@@ -1148,8 +1289,9 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
 // ---- the kernel ------------------------------------------------------------
 
 template <int K, bool GENERAL>
-__global__ void __launch_bounds__(BLOCK_THREADS,
-                                  GENERAL ? MIN_BLOCKS_GENERAL : MIN_BLOCKS)
+__global__ void __launch_bounds__(BLOCK_THREADS, GENERAL && K == K_CENTROID
+                                                     ? MIN_BLOCKS_GENERAL
+                                                     : MIN_BLOCKS)
 fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
                           FusedRolloutLeaves out, float* rsum_out,
                           int32_t* dcnt_out, int batch, int num_steps,
@@ -1241,7 +1383,33 @@ int launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
   return (int)cudaGetLastError();
 }
 
+template <int K>
+int boards_per_sm(bool general) {
+  int blocks = 0;
+  const cudaError_t err =
+      general ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, fused_rollout_warp_kernel<K, true>,
+                    BLOCK_THREADS, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, fused_rollout_warp_kernel<K, false>,
+                    BLOCK_THREADS, 0);
+  return err == cudaSuccess ? blocks * WARPS : -1;
+}
+
 }  // namespace
+
+int fused_rollout_warp_boards_per_sm(const FusedRolloutParams& p) {
+  switch (p.kernel) {
+    case K_CENTROID:
+      return boards_per_sm<K_CENTROID>(p.general);
+    case K_BEAM:
+      return boards_per_sm<K_BEAM>(p.general);
+    case K_BOTH:
+      return boards_per_sm<K_BOTH>(p.general);
+    default:
+      return -1;
+  }
+}
 
 int fused_rollout_warp_launch(const FusedRolloutParams& p,
                               const FusedRolloutLeaves& in,

@@ -777,10 +777,26 @@ def kernel_library() -> ctypes.CDLL:
         ctypes.c_void_p]
     lib.fused_rollout_capacity.restype = ctypes.c_int
     lib.fused_rollout_capacity.argtypes = [ctypes.c_char_p]
+    lib.fused_rollout_boards_per_sm.restype = ctypes.c_int
+    lib.fused_rollout_boards_per_sm.argtypes = [
+        ctypes.POINTER(_KernelParams)]
     got = {k: lib.fused_rollout_capacity(k.encode()) for k in KERNEL_CAPACITY}
     if got != KERNEL_CAPACITY:
         raise RuntimeError(f"kernel capacities {got} != {KERNEL_CAPACITY}")
     return lib
+
+
+def boards_per_sm(params: EnvParams, general: bool) -> int:
+    """How many boards one SM of the card holds at once in the pin kernel
+    that runs ``params``, in its general instantiation or its default one
+    (the CUDA runtime's occupancy of its block, 8 boards a block)."""
+    kparams = _kernel_params(params)
+    kparams.general = int(general)
+    got = kernel_library().fused_rollout_boards_per_sm(ctypes.byref(kparams))
+    if got < 0:
+        raise RuntimeError(f"no occupancy for the {kernel_name(params)} "
+                           "kernel")
+    return got
 
 
 class FusedRollout:

@@ -49,9 +49,23 @@ inline EmuDim3 threadIdx, blockIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// occupancy is the card's: not emulated
+template <class Kernel>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* blocks, Kernel, int, size_t) {
+  *blocks = 0;
+  return cudaErrorInvalidValue;
+}
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(int v) { return __builtin_ffs(v); }
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (unsigned)(v >> (8 * ((s >> (4 * i)) & 7)) & 0xff) << (8 * i);
+  return r;
+}
 inline unsigned __float_as_uint(float f) {
   unsigned u;
   memcpy(&u, &f, 4);

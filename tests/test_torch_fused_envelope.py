@@ -83,6 +83,11 @@ EDGES = {
         "max_num_components": 20}),
     "tall_square": ("square", {"height": 36, "width": 4}),
     "wide_pin": ("rectangle_pin", {"height": 3, "width": 48}),
+    # the Train page's most nets with the beam route: "both", width 2
+    "web_nets10_both": ("rectangle_pin", {
+        "min_num_nets": 10, "max_num_nets": 10, "min_num_pins_per_net": 2,
+        "max_num_pins_per_net": 4, "reward_type": "both",
+        "reward_beam_width": 2}),
 }
 #: the edges whose JAX run is repeated live (the others read the fixture)
 LIVE = ("web_nets10", "wide_rect")

@@ -21,7 +21,7 @@ from placement_tpu_torch.ops import _build
 from placement_tpu_torch.ops import fused_rollout as torch_fused
 from placement_tpu_torch.utils.config import load_env_params
 from tests.cuda_emu import emu
-from tests.test_torch_fused_envelope import EDGES
+from tests.test_torch_fused_envelope import _ROOMY, EDGES
 
 #: seconds a case's emulated chunks may take (they take one or two)
 CASE_TIMEOUT = 120
@@ -131,6 +131,31 @@ GENERAL_CASES = {
     "pin_32x32_nets10": ("rectangle_pin", {
         "height": 32, "width": 32, "min_num_nets": 10, "max_num_nets": 10,
         "min_num_pins_per_net": 2, "max_num_pins_per_net": 2}),
+    # the beam route's segments: M = 16 pins, two segments a slot, the
+    # third net alone in slot 1 beside a segment of no net (a side past 32
+    # takes it to the general instantiation)
+    "nets3_ppn16_beam_4x36": ("rectangle_pin", {
+        **_ROOMY, "height": 4, "width": 36, "min_num_nets": 3,
+        "max_num_nets": 3,
+        "min_num_pins_per_net": 16, "max_num_pins_per_net": 16,
+        "reward_type": "beam", "reward_beam_width": 2}),
+    # M = 5: six segments a slot and two lanes of none; nine nets, three of
+    # them in slot 1
+    "nets9_ppn5_both": ("rectangle_pin", {
+        **_ROOMY, "min_num_nets": 9, "max_num_nets": 9,
+        "min_num_pins_per_net": 5, "max_num_pins_per_net": 5,
+        "reward_type": "both", "reward_beam_width": 4}),
+    # a net of 17-24 pins on each lane slot, width 3 (not a power of 2):
+    # the two nets' rounds differ
+    "ppn17_24_beam3": ("rectangle_pin", {
+        **_ROOMY, "min_num_nets": 2, "max_num_nets": 2,
+        "min_num_pins_per_net": 17, "max_num_pins_per_net": 24,
+        "reward_type": "beam", "reward_beam_width": 3}),
+    # the web app's 10 nets of 2..4 pins, beam width 4: bw > M on the
+    # 2-pin nets, the nets' rounds differ
+    "web_nets10_beam4": ("rectangle_pin", {
+        **EDGES["web_nets10"][1], "reward_type": "beam",
+        "reward_beam_width": 4}),
     "rect_1x144": ("rectangle", {
         "height": 1, "width": 144, "min_component_h": 1,
         "max_component_h": 1, "min_component_w": 1, "max_component_w": 3,
