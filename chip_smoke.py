@@ -46,7 +46,8 @@ Phases (any failure raises and the exit code is not 0):
   2. build   — one nvcc per ops/csrc/*.cu, all at once, linked into
      build/torch_kernels/; reports ``ptxas -v`` for every kernel, and the
      general pin instantiations' registers and boards resident per SM
-     beside PR 14's
+     beside their first build's (``GENERAL_PTXAS_PR14``); each must hold
+     32 boards per SM (all 4,096 at once)
   3. TPU hardware goldens — k7 start, 128 boards, seed 1234, block 128: the
      rows of experiments/results/fused_hw_validation.json
   4. JAX goldens — zero start, 128 boards, seed 1234 (the varying-pins
@@ -66,10 +67,12 @@ Phases (any failure raises and the exit code is not 0):
      net, a side over 32 at area <= 144) on the eight edges of the JAX
      kernel's envelope (tests/fixtures/torch_fused_zero_envelope_*.json):
      leaf hashes equal to the JAX kernel's at the fixture's size, kernel ==
-     plain at 4096 boards (timed, with its bound), and the matrix tool's
-     fused row on each, its launches equal to its calls; three of them
-     timed under each routing reward; the flagship's rows forced onto the
-     general instantiation, leaves and time beside the default one's
+     plain at 4096 boards (timed, with its bound, beside its recorded
+     time, ``GENERAL_MS_PR15``), and the matrix tool's fused row on each,
+     its launches equal to its calls; four of them timed under each
+     routing reward, two at 1024, 4096 and 16384 boards; the flagship's
+     rows forced onto the general instantiation, leaves and time beside
+     the default one's
   6. main path 1, timed; the kernel's launch count must equal the calls
   7. main path 2, the matrix; launch counts set to 0 before and read after:
      every specialisation must have launched; the square and rect rows'
@@ -185,6 +188,12 @@ Phases (any failure raises and the exit code is not 0):
 Every timed window follows at least ``WARM_S`` seconds of chained launches:
 a card fresh from idle runs its first ~50 ms slower while its clock ramps.
 
+Two measurements are not part of the run and are called alone:
+``phase_split`` (where a chunk of each kernel goes, from clock64() stamps
+in an instrumented copy of the sources) and ``phase_turns`` (another
+checkout's kernel sources against this one's, leaves equal, timed in
+turns).
+
 The second-to-last line is the kernels' JSON record, each with its bound
 (``_chunk_bound``); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -271,6 +280,16 @@ BASELINE_PTXAS = {"centroid": (64, 40, 0), "beam": (64, 48, 4),
 #: block; 3,168 of 4,096 boards resident for the beam, 2,112 for "both")
 GENERAL_PTXAS_PR14 = {"centroid": (70, 24), "beam": (80, 24),
                       "both": (88, 16)}
+#: the boards one SM must hold at once in each general pin instantiation:
+#: 32, so that 4,096 boards are resident at once on 132 SMs
+GENERAL_BOARDS_PER_SM = 32
+#: [envelope]'s edges as recorded before the general centroid and rect
+#: kernels were redesigned (PERF.md §6, rows 1g-5g; NVIDIA H100 80GB HBM3,
+#: 700.00 W): card ms per chunk at 4096 boards
+GENERAL_MS_PR15 = {"web_nets10": 0.84830, "wide_pin": 0.43728,
+                   "nets24_both": 1.39485, "web_nets10_both": 1.06724,
+                   "ppn24_beam4": 1.68295, "ppn48_beam2": 1.57196,
+                   "wide_rect": 0.13681, "tall_square": 0.12996}
 #: main path 3's ranks: chained seeds
 RANK_SEEDS = (1, 2)
 #: the kernels (one warp per board; 8 boards per CUDA block, the reduced
@@ -279,9 +298,10 @@ RANK_SEEDS = (1, 2)
 PARTIAL_BATCH, PARTIAL_BLOCK = 1004, 4
 #: the matrix rows held to plain at that batch: one per kernel
 PARTIAL_ROWS = ("pin_centroid", "pin_beam", "pin_both", "square", "rect")
-#: boards at which the centroid, beam and rect kernels are timed for their
-#: scaling
+#: boards at which the centroid, beam and rect kernels, and the general
+#: ones on two edges, are timed for their scaling
 SCALING_BATCHES = (1024, 4096, 16384)
+SCALING_EDGES = ("web_nets10", "wide_rect")
 #: the reduced kernels' capacity shapes, held to plain at this batch: row,
 #: overrides. SQUARE's footprint is (component_n, component_n), not the
 #: component ranges; RECT's 64 components fill the second lane slot of the
@@ -404,6 +424,9 @@ def phase_build():
               f"stores (PR 14: {regs} registers); {now[True]} boards "
               f"resident per SM, {now[True] * sms} on {sms} SMs (PR 14: "
               f"{boards}, {boards * sms}); the default one {now[False]}")
+        _check(now[True] >= GENERAL_BOARDS_PER_SM,
+               f"{k}_general: {now[True]} boards resident per SM, under "
+               f"{GENERAL_BOARDS_PER_SM}")
 
 
 def phase_hw_golden(kernel):
@@ -658,8 +681,9 @@ def phase_envelope():
                             device="cuda", block=ENVELOPE_BLOCK)
         print(f"[envelope] {name} ({row['kernel']} kernel, general "
               f"instantiation): {BATCH} boards, block {ENVELOPE_BLOCK}: "
-              f"kernel {got[1]!r} ms per chunk, plain {got[2]!r} ms, bound "
-              f"{got[3]!r} ms by {got[4]}; bench_matrix.measure "
+              f"kernel {got[1]!r} ms per chunk ({got[1] / GENERAL_MS_PR15[name]!r}"
+              f" x the recorded {GENERAL_MS_PR15[name]!r}), plain {got[2]!r} "
+              f"ms, bound {got[3]!r} ms by {got[4]}; bench_matrix.measure "
               f"{row['steps_per_sec']!r} env-steps/s, {row['launches']} "
               f"launches for {row['calls']} calls, {row['episodes']} "
               f"episodes")
@@ -668,6 +692,8 @@ def phase_envelope():
         out[name] = (row["kernel"], *got, row["launches"])
         if name in SPLIT_EDGES:
             phase_reward_split(f"envelope {name}", params, ENVELOPE_BLOCK)
+        if name in SCALING_EDGES:
+            phase_batch_scaling(params, ENVELOPE_BLOCK)
     # what the default instantiation saves where both run: the flagship's
     # rows on the general one, leaves equal to the default one's
     for row in ("pin_centroid", "pin_beam", "rect"):
@@ -700,8 +726,10 @@ def phase_batch_scaling(params, block):
                                    device="cuda")
         leaves, _, _ = fn.per_board(fr.zero_leaves(params, batch, "cuda"), 1)
         ms = [_kernel_ms(fn, leaves, 10 * i, TIMED_CHUNKS) for i in (1, 2)]
-        print(f"[batch] {fn.kernel} kernel, {batch} boards: ms per chunk "
-              f"{ms!r}, {batch * STEPS / min(ms) * 1e3!r} env-steps/s")
+        print(f"[batch] {fn.kernel} kernel"
+              f"{' (general)' if fn.general else ''}, {batch} boards: ms "
+              f"per chunk {ms!r}, {batch * STEPS / min(ms) * 1e3!r} "
+              "env-steps/s")
 
 
 def phase_reward_split(label, params, block):
@@ -717,6 +745,256 @@ def phase_reward_split(label, params, block):
         ms[reward] = _kernel_ms(fn, leaves, 10, TIMED_CHUNKS)
     print(f"[reward split] {label}, {BATCH} boards, block {block}: ms per "
           f"chunk by reward {ms!r}")
+
+
+# ---- where a chunk goes, and two kernel sources in turns (run alone) -------
+#
+# Neither is part of the smoke run:
+#   python -c "import chip_smoke as cs; cs.phase_device(); cs.phase_split()"
+#   python -c "import chip_smoke as cs; cs.phase_device();
+#              cs.phase_turns('<parent checkout>')"
+
+#: a board-step's phases in the instrumented copy of the kernel sources:
+#: the pin kernels' and the reduced kernels' names for the counter slots
+#: (slot 7 is the whole loop over the chunk's steps)
+SPLIT_PHASES = {
+    "pin": ("sample", "paint and pins", "planes", "route",
+            "generator (not allocate_net)", "allocate_net"),
+    "reduced": ("sample (nth_cell)", "paint", "planes", None, "generator"),
+}
+#: [envelope]'s edges (and the default rows) that phase_split and
+#: phase_turns run; "<edge>/<reward>" runs an edge under another reward
+PHASE_ROWS = ("web_nets10", "nets24_both/centroid", "nets24_both",
+              "wide_pin", "web_nets10_both", "ppn24_beam4", "ppn48_beam2",
+              "wide_rect", "tall_square", "pin_centroid", "pin_beam",
+              "pin_both", "rect", "square", "varpin_web",
+              "pin_centroid/general", "pin_beam/general", "rect/general")
+
+_PROF = r"""
+__shared__ unsigned long long s_phase_clocks[8][8];
+__device__ unsigned long long g_phase_clocks[9];
+#define PHASE_ADD(i, t0) do { long long now_ = clock64(); \
+  if ((threadIdx.x & 31) == 0) s_phase_clocks[threadIdx.x >> 5][i] += \
+      now_ - (t0); t0 = now_; } while (0)
+extern "C" int PHASE_READER(unsigned long long* host) {
+  cudaMemcpyFromSymbol(host, g_phase_clocks, sizeof(g_phase_clocks));
+  unsigned long long zero[9] = {0};
+  cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
+  return (int)cudaDeviceSynchronize();
+}
+"""
+_LOOP = ("  float rsum = 0.0f;\n  int dcnt = 0;\n"
+         "  for (int t = 0; t < num_steps; ++t) {\n")
+_LOOP_PROF = ("  float rsum = 0.0f;\n  int dcnt = 0;\n"
+              "  if (lane == 0)\n"
+              "    for (int i = 0; i < 8; ++i) s_phase_clocks[warp][i] = 0;\n"
+              "  long long t_loop = clock64();\n"
+              "  for (int t = 0; t < num_steps; ++t) {\n")
+_FLUSH = ("  PHASE_ADD(7, t_loop);\n  if (lane == 0) {\n"
+          "    for (int i = 0; i < 8; ++i)\n"
+          "      atomicAdd(&g_phase_clocks[i], s_phase_clocks[warp][i]);\n"
+          "    atomicAdd(&g_phase_clocks[8], 1ull);\n  }\n")
+#: (file, anchor, text put before it, text put after it)
+_STAMPS = (
+    ("fused_rollout_warp.cu", '#include "fused_warp.cuh"\n', "",
+     _PROF.replace("PHASE_READER", "phase_clocks_pin")),
+    ("fused_rollout_warp.cu", "  const int C = p.components, P = p.pins;\n"
+     "  // sample a legal action over four planes", "  long long t_ = clock64();\n", ""),
+    ("fused_rollout_warp.cu", "  nth_cell<GENERAL>(p, even ? b.pl0 : b.pl1, "
+     "(int)tin, lane, xx, yy);\n", "", "  PHASE_ADD(0, t_);\n"),
+    ("fused_rollout_warp.cu", "  const bool placed_all = b.cur >= b.numc;\n"
+     "  planes_for", "  PHASE_ADD(1, t_);\n", ""),
+    ("fused_rollout_warp.cu", "  const bool done = placed_all || nt == 0 || "
+     "!alive;\n", "", "  PHASE_ADD(2, t_);\n"),
+    ("fused_rollout_warp.cu", "                            : p.penalty;\n", "",
+     "  PHASE_ADD(3, t_);\n"),
+    ("fused_rollout_warp.cu", "  const int PPC = p.pins_per_component;\n", "",
+     "  long long tg_ = clock64();\n"),
+    ("fused_rollout_warp.cu", "  __syncwarp();  // the last episode's reads "
+     "of the tables are done\n", "", "  PHASE_ADD(4, tg_);\n"),
+    ("fused_rollout_warp.cu", "  // draw call_base+N: a random cell order per "
+     "component", "  PHASE_ADD(5, tg_);\n", ""),
+    ("fused_rollout_warp.cu", "  b.grid = 0u;\n  b.cur = 0;\n  planes_for",
+     "  PHASE_ADD(4, tg_);\n", ""),
+    ("fused_rollout_warp.cu", "                      __shfl_sync(FULL, b.cw, "
+     "0), true, lane);\n}", "", ""),
+    ("fused_rollout_warp.cu", _LOOP + "    rng.salt = step_salt(blk_salt, t);"
+     "\n    step<K, GENERAL>", "", ""),
+    ("fused_rollout_warp.cu", "  store_rows<GENERAL>(p, out.grid + b * A, "
+     "bd.grid, lane);\n", _FLUSH, ""),
+    ("fused_rollout.cu", '#include "fused_warp.cuh"\n', "",
+     _PROF.replace("PHASE_READER", "phase_clocks_reduced")),
+    ("fused_rollout.cu", "  const int c0 = b.n0, c1 = K == K_SQUARE ? 0 : "
+     "b.n1;\n", "  long long t_ = clock64();\n", ""),
+    ("fused_rollout.cu", "    nth_cell<FLAT>(p, odd ? b.pl1 : b.pl0, (int)tin,"
+     " lane, xx, yy);\n", "", "    PHASE_ADD(0, t_);\n"),
+    ("fused_rollout.cu", "    paint<FLAT>(p, b.grid, xx, yy, odd ? b.w : b.h,"
+     " odd ? b.h : b.w, lane);\n", "", "    PHASE_ADD(1, t_);\n"),
+    ("fused_rollout.cu", "  next_component<K, FLAT>(p, b, placed_all, lane);"
+     "\n", "", "  PHASE_ADD(2, t_);\n"),
+    ("fused_rollout.cu", "  const int C = p.components;\n  if (K == K_SQUARE)"
+     " {", "  long long tg_ = clock64();\n", ""),
+    ("fused_rollout.cu", "  next_component<K, FLAT>(p, b, false, lane);\n",
+     "  PHASE_ADD(4, tg_);\n", "  PHASE_ADD(2, tg_);\n"),
+    ("fused_rollout.cu", _LOOP + "    rng.salt = step_salt(blk_salt, t);\n"
+     "    step<K, FLAT>", "", ""),
+    ("fused_rollout.cu", "  store_rows<FLAT>(p, out.grid + b * A, bd.grid, "
+     "lane);\n", _FLUSH, ""),
+)
+
+
+def _instrument(src, dst):
+    """A copy of the kernel sources in ``src`` with clock64() stamps: each
+    warp's lane 0 sums its board's cycles per phase (``SPLIT_PHASES``) in
+    shared memory and adds them to a device counter at the chunk's end."""
+    dst.mkdir(parents=True, exist_ok=True)
+    texts = {f.name: f.read_text() for f in src.iterdir()
+             if f.suffix in (".cu", ".cuh")}
+    for name, anchor, before, after in _STAMPS:
+        text = texts[name]
+        _check(text.count(anchor) == 1, f"phase stamps: {name} has "
+                                        f"{text.count(anchor)} of {anchor!r}")
+        new = before + anchor + after
+        if anchor.startswith(_LOOP):
+            new = anchor.replace(_LOOP, _LOOP_PROF)
+        elif anchor.endswith("true, lane);\n}"):
+            new = anchor[:-2] + "\n  PHASE_ADD(2, tg_);\n}"
+        texts[name] = text.replace(anchor, new)
+    for name, text in texts.items():
+        (dst / name).write_text(text)
+
+
+@contextlib.contextmanager
+def _library(lib):
+    """The fused wrapper launches ``lib`` (a loaded kernel library)."""
+    from placement_tpu_torch.ops import fused_rollout as fr
+    was = fr.kernel_library
+    fr.kernel_library = lambda: lib
+    try:
+        yield
+    finally:
+        fr.kernel_library = was
+
+
+def _phase_row(name):
+    """A row of ``PHASE_ROWS``: (label, params, block, general or None)."""
+    base, _, variant = name.partition("/")
+    fixture = FIXTURES / f"torch_fused_zero_envelope_{base}.json"
+    if fixture.exists():
+        params, block = _golden_params(json.loads(fixture.read_text())), \
+            ENVELOPE_BLOCK
+    elif base in VARPIN:
+        params = _golden_params(json.loads(
+            (FIXTURES / JAX_GOLDENS[base]).read_text()))
+        block = VARPIN[base]
+    else:
+        params, block = _row(base)
+    if variant in ("centroid", "beam", "both"):
+        params = params.replace(reward_type=variant)
+    return name, params, block, (True if variant == "general" else None)
+
+
+def _row_fn(params, block, general):
+    from placement_tpu_torch.ops import fused_rollout as fr
+    fn = fr.make_fused_rollout(params, BATCH, STEPS, block=block,
+                               device="cuda")
+    if general is not None:
+        fn._kparams.general = int(general)
+    leaves = fr.zero_leaves(params, BATCH, "cuda")
+    for seed in (1, 2):
+        leaves, _, _ = fn.per_board(leaves, seed)
+    return fn, leaves
+
+
+def phase_split(rows=PHASE_ROWS, csrc=None):
+    """Where a chunk goes: an instrumented copy of the kernel sources
+    (``csrc``, by default this checkout's) built into build/kernel_phases/,
+    20 chained chunks of each row at ``BATCH`` boards from mid-run boards;
+    per row each phase's cycles a board and chunk (summed over its warp's
+    steps) and share of the loop's, and the chunk's ms in the instrumented
+    and the plain build."""
+    import ctypes
+    import torch
+    from placement_tpu_torch.ops import _build, fused_rollout as fr
+    csrc = pathlib.Path(csrc) if csrc else _build.CSRC
+    copy = REPO / "build" / "kernel_phases" / "src"
+    _instrument(csrc, copy)
+    libs = {}
+    for tag, src in (("plain", csrc), ("stamped", copy)):
+        path, seconds = _build.build(src, REPO / "build" / "kernel_phases")
+        libs[tag] = fr.load_kernel_library(path)
+        print(f"[split] {tag} build of {src}: {seconds:.1f} s of nvcc")
+    for name in rows:
+        label, params, block, general = _phase_row(name)
+        kind = "reduced" if fr.kernel_name(params) in ("square", "rect") \
+            else "pin"
+        reader = getattr(libs["stamped"], f"phase_clocks_{kind}")
+        counts = (ctypes.c_ulonglong * 9)()
+        ms = {}
+        for tag in ("plain", "stamped"):
+            with _library(libs[tag]):
+                fn, leaves = _row_fn(params, block, general)
+                ms[tag] = _kernel_ms(fn, leaves, 10, TIMED_CHUNKS)
+                if tag == "stamped":
+                    reader(counts)
+                    done = 0
+                    for i in range(TIMED_CHUNKS):
+                        leaves, _, d = fn.per_board(leaves, 1000 + i)
+                        done += int(d.sum())
+                    torch.cuda.synchronize()
+                    _check(reader(counts) == 0, "phase counters")
+        boards = counts[8]
+        names = SPLIT_PHASES[kind]
+        cycles = {n: counts[i] / boards for i, n in enumerate(names) if n}
+        loop = counts[7] / boards
+        print(f"[split] {label} ({fn.kernel} kernel"
+              f"{', general' if fn.general else ''}): ms per chunk "
+              f"{ms['plain']!r} (stamped {ms['stamped']!r}); episodes a board "
+              f"and chunk {done / BATCH / TIMED_CHUNKS!r}; cycles a board and "
+              f"chunk {loop!r}; shares "
+              f"{json.dumps({n: c / loop for n, c in cycles.items()})}; "
+              f"cycles {json.dumps(cycles)}", flush=True)
+
+
+def phase_turns(parent, rows=PHASE_ROWS):
+    """The kernel sources of another checkout (``parent``, its root) and
+    this checkout's, each built into build/kernel_phases/, on each row at
+    ``BATCH`` boards: the same chunk's leaves, board sums and done counts
+    equal bit for bit, then ms per chunk in turns parent, this, this,
+    parent, and the smaller of each pair."""
+    import torch
+    from placement_tpu_torch.ops import _build, fused_rollout as fr
+    libs = {}
+    for tag, root in (("parent", pathlib.Path(parent)), ("this", REPO)):
+        src = root / "placement_tpu_torch" / "ops" / "csrc"
+        path, seconds = _build.build(src, REPO / "build" / "kernel_phases")
+        libs[tag] = fr.load_kernel_library(path)
+        print(f"[turns] {tag} build of {src}: {seconds:.1f} s of nvcc; "
+              f"{path.name}")
+    for name in rows:
+        label, params, block, general = _phase_row(name)
+        runs = {}
+        for tag in ("parent", "this"):
+            with _library(libs[tag]):
+                fn, leaves = _row_fn(params, block, general)
+                runs[tag] = (fn, fn.per_board(leaves, 77))
+        (fa, (la, ra, da)), (fb, (lb, rb, db)) = runs["parent"], runs["this"]
+        same = (all(torch.equal(la[k], lb[k]) for k in fr._LEAVES)
+                and torch.equal(ra, rb) and torch.equal(da, db))
+        ms = {"parent": [], "this": []}
+        for tag in ("parent", "this", "this", "parent"):
+            fn = runs[tag][0]
+            with _library(libs[tag]):
+                ms[tag].append(_kernel_ms(fn, la, 10, TIMED_CHUNKS))
+        best = {k: min(v) for k, v in ms.items()}
+        print(f"[turns] {label} ({fb.kernel} kernel"
+              f"{', general' if fb.general else ''}): a chunk's leaves, "
+              f"board sums and done counts equal {same}; ms per chunk "
+              f"parent {ms['parent']!r}, this {ms['this']!r}: "
+              f"{best['this']!r} against {best['parent']!r} "
+              f"({best['this'] / best['parent']!r} x)", flush=True)
+        _check(same, f"{label}: this checkout's kernel differs from the "
+                     "parent's")
 
 
 def phase_main_path(params, ref_mean):

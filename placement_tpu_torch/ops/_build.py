@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc`` (``fused_rollout`` loads them
+with ``ctypes``).
 
 Every ``ops/csrc/*.cu`` file is compiled by its own ``nvcc``, all started
 together, and the objects are linked into one shared library with a plain C
@@ -12,7 +13,6 @@ library.
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import pathlib
@@ -32,20 +32,23 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
               "-Xcompiler", "-fPIC")
 
 
-def sources() -> "list[pathlib.Path]":
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(csrc: "pathlib.Path | None" = None) -> "list[pathlib.Path]":
+    csrc = csrc or CSRC
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: "pathlib.Path | None" = None) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sources(csrc):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> pathlib.Path:
-    return BUILD_DIR / f"libplacement_kernels_{source_hash()}.so"
+def library_path(csrc: "pathlib.Path | None" = None,
+                 build_dir: "pathlib.Path | None" = None) -> pathlib.Path:
+    return ((build_dir or BUILD_DIR)
+            / f"libplacement_kernels_{source_hash(csrc)}.so")
 
 
 def _nvcc() -> str:
@@ -60,20 +63,23 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Tuple[pathlib.Path, float]:
-    """Compile the sources unless this hash is built; returns the library
-    path and the seconds spent compiling (0.0 when reused). The compilers'
-    output (``-Xptxas=-v``: registers, spills, stack frames) is kept beside
-    the library as ``<name>.log``."""
-    lib = library_path()
+def build(csrc: "pathlib.Path | None" = None,
+          build_dir: "pathlib.Path | None" = None
+          ) -> Tuple[pathlib.Path, float]:
+    """Compile the sources (``csrc``, by default the package's) unless this
+    hash is built; returns the library path and the seconds spent compiling
+    (0.0 when reused). The compilers' output (``-Xptxas=-v``: registers,
+    spills, stack frames) is kept beside the library as ``<name>.log``."""
+    csrc = csrc or CSRC
+    lib = library_path(csrc, build_dir)
     if lib.exists():
         return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(csrc.glob("*.cu")):
         obj = tmp.with_suffix(f".{src.stem}.o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(
@@ -102,8 +108,3 @@ def build() -> Tuple[pathlib.Path, float]:
     lib.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, lib)
     return lib, seconds
-
-
-def load_library() -> ctypes.CDLL:
-    """Build if needed, then load the kernel library."""
-    return ctypes.CDLL(str(build()[0]))

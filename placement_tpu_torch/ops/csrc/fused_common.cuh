@@ -69,6 +69,8 @@ struct FusedRolloutParams {
   int32_t beam_width;   // K_BEAM, K_BOTH
   int32_t component_n;  // K_SQUARE's n x n footprint
   int32_t general;      // run the general instantiation (needs_general)
+  int32_t row_stride;   // the flat layout's bits a row (fused_warp.cuh)
+  int32_t stride_recip; // ceil(2^22 / row_stride): t / row_stride
 };
 
 // One device pointer per leaf, in the order of _LEAVES.

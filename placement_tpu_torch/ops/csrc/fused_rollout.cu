@@ -34,7 +34,9 @@
 //   * each plane's count of legal anchors and the size of the component
 //     under the cursor are kept from the step that made them, a square
 //     component's second plane is a copy, and the sampled anchor stays a
-//     (row, column) pair, so no step divides by the grid's width;
+//     (row, column) pair, so no step divides by the grid's width (the flat
+//     layout's bit index becomes one by a multiply by the row stride's
+//     reciprocal);
 //   * RECT's generator draws entry c's height and width on entry c's lane;
 //   * the leaves are read and written 32 contiguous cells at a time, and
 //     the pin leaves (absent from these environments, but part of the

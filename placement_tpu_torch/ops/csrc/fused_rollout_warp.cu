@@ -63,14 +63,18 @@
 // of every net at once on two lane slots (beam_wl_int_general: nets of up
 // to 16 pins on segments of a slot, of 17-32 one a slot, of more over both
 // slots; a net's reductions a redux.sync each or a segment's shuffle tree;
-// coordinates up to 254). The general beam and "both" ones hold 64
-// registers like the default ones (their spills cost less than the second
-// wave of boards that 80-88 registers took); the general centroid one, at
-// up to 128 registers, does not yet.
+// coordinates up to 254). All three general ones hold 64 registers like
+// the default ones: their spills cost less than a second wave of boards.
+// Their centroid route (centroid_wl_int_general) and allocation
+// (allocate_net_general) take a fixed number of warp steps whatever the
+// nets: per-net sums and bin counts are shared-memory atomics of integers
+// (exact in any order), and the crossing pairs of the routed segments are
+// dealt evenly over the lanes from shared memory.
 // Every f32 sum whose order the plain version fixes is still taken in that
 // order (the wirelength over pins, or over nets and path positions, the
-// allocation's weights, the softmax total and cumulative probabilities, the
-// per-board reward sum): lane 0's order, broadcast. Integer sums (and f32
+// allocation's weights (the general allocation: the integer sums they
+// equal), the softmax total and cumulative probabilities, the per-board
+// reward sum): lane 0's order, broadcast. Integer sums (and f32
 // sums of small integers, exact in any order) are warp reductions. Every
 // sort is a rank by counting over unique keys, which gives the stable
 // sort's order. The PRNG row and salt are those of the LOGICAL block,
@@ -89,7 +93,6 @@ namespace {
 constexpr int WARPS = 8;                 // boards per block
 constexpr int BLOCK_THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS = 4;            // 64 registers a thread
-constexpr int MIN_BLOCKS_GENERAL = 2;    // 128: the general centroid
 
 static_assert(MAX_P <= 64 && MAX_M <= 64, "two pin slots per lane");
 static_assert(MAX_C <= 32 && MAX_N <= 32, "a lane per component and net");
@@ -122,7 +125,10 @@ __device__ __forceinline__ void planes_for(const FusedRolloutParams& p,
     return;
   }
   b.pl0 = free_row<false, FLAT>(p, b.grid, ch_c, cw_c, lane);
-  b.pl1 = free_row<false, FLAT>(p, b.grid, cw_c, ch_c, lane);
+  // (FLAT: a square footprint's second plane is the first)
+  b.pl1 = FLAT && ch_c == cw_c
+              ? b.pl0
+              : free_row<false, FLAT>(p, b.grid, cw_c, ch_c, lane);
 }
 
 // ---- centroid routing reward (fused_routing.centroid_wl_int) -------------
@@ -242,6 +248,144 @@ __device__ void centroid_wl_int(const FusedRolloutParams& p,
         ints += seg_intersect(ax1 * sc[s], ay1 * sc[s], ax2 * sc[s],
                               ay2 * sc[s], x1s[s] * s_q, y1s[s] * s_q,
                               x2s[s] * s_q, y2s[s] * s_q);
+    }
+  }
+  wl_out = wl;
+  ints_out = warp_sum(ints);
+}
+
+// ---- the general instantiation's centroid route ---------------------------
+
+// A warp's shared scratch of centroid_wl_int_general: per net its sums and
+// its segments' far end, then the routed segments in pin order.
+struct CentroidScratch {
+  int count_x[MAX_N];              // pin count + x sum * 2^8
+  int sum_y[MAX_N];                // y sum
+  float4 end[MAX_N];               // far end (ex, ey), scaled (exs, eys)
+  int info[MAX_N];                 // count | first pin << 8
+  float4 seg[MAX_P];               // x1s, y1s, x2s, y2s (integer-scaled)
+  float2 tag[MAX_P];               // scale, net
+  float term[MAX_P];               // wirelength term
+};
+__shared__ CentroidScratch s_centroid[WARPS];
+static_assert(MAX_M < 256, "a net's pin count in count_x's low byte");
+
+// centroid_wl_int for up to MAX_N nets and MAX_P pins in a fixed number of
+// warp steps: a pin adds to its net's count and coordinate sums by two
+// shared-memory atomics (integers: exact in any order); lane n makes net
+// n's far end; each pin its segment and term, the routed ones packed in
+// pin order; the wirelength is their f32 sum in pin order, and the
+// V(V - 1) / 2 pairs of the V routed segments are dealt evenly over the
+// lanes, both segments read from shared memory. The crossing predicate is
+// symmetric in its two segments (each orientation test and the
+// determinant's sign swap), so a pair's order within it does not matter.
+__device__ void centroid_wl_int_general(const FusedRolloutParams& p,
+                                        const WarpBoard& b, int lane,
+                                        float& wl_out, int& ints_out) {
+  CentroidScratch& cs = s_centroid[threadIdx.x >> 5];
+  const int N = p.nets, P = p.pins;
+  // a pin's net, or -1 where it is not routed
+  int net_on[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = lane + 32 * s, n = b.pnet[s];
+    net_on[s] = (q < P && q < b.npin && n >= 0 && n < N) ? n : -1;
+  }
+  __syncwarp();  // the last route's reads of the scratch are done
+  if (lane < N) cs.count_x[lane] = cs.sum_y[lane] = 0;
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (net_on[s] < 0) continue;
+    atomicAdd(&cs.count_x[net_on[s]], 1 + 256 * b.pax[s]);
+    atomicAdd(&cs.sum_y[net_on[s]], b.pay[s]);
+  }
+  __syncwarp();
+  // lane n: net n's pin count (under 2^8), coordinate sums, centroid,
+  // first pin
+  const int cx_word = lane < N ? cs.count_x[lane] : 0;
+  const int cnt = cx_word & 0xff;
+  const int sxi = (cx_word - cnt) / 256, syi = lane < N ? cs.sum_y[lane] : 0;
+  const float sx = (float)sxi, sy = (float)syi;
+  const float denom = (float)max(cnt, 1);
+  const float cx = sx / denom, cy = sy / denom;
+  const int start = warp_scan(cnt, lane, N) - cnt;
+  // lane n: the net's second pin (2-pin routes), pin start + 1
+  float x2 = 0.f, y2 = 0.f;
+  {
+    const int s2 = start + 1, src = s2 & 31;
+    const int n0 = __shfl_sync(FULL, net_on[0], src);
+    const int n1 = __shfl_sync(FULL, net_on[1], src);
+    const int ax0 = __shfl_sync(FULL, b.pax[0], src);
+    const int ax1 = __shfl_sync(FULL, b.pax[1], src);
+    const int ay0 = __shfl_sync(FULL, b.pay[0], src);
+    const int ay1 = __shfl_sync(FULL, b.pay[1], src);
+    const bool hi = s2 >= 32;
+    if (lane < N && s2 < 64 && (hi ? n1 : n0) == lane) {
+      x2 = (float)(hi ? ax1 : ax0);
+      y2 = (float)(hi ? ay1 : ay0);
+    }
+  }
+  if (lane < N) {
+    const bool two = cnt == 2;
+    cs.end[lane] = make_float4(two ? x2 : cx, two ? y2 : cy, two ? x2 : sx,
+                               two ? y2 : sy);
+    cs.info[lane] = cnt | start << 8;
+  }
+  __syncwarp();
+  // per pin: its segment (integer-scaled endpoints for the exact
+  // predicate) and wirelength term, packed in pin order where routed
+  const uint32_t below = (1u << lane) - 1u;
+  int before = 0;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = lane + 32 * s, n = net_on[s];
+    const float x = (float)b.pax[s], y = (float)b.pay[s];
+    float4 e = make_float4(0.f, 0.f, 0.f, 0.f);
+    float scv = 1.f;
+    bool valid = false;
+    if (n >= 0) {
+      e = cs.end[n];
+      const int info = cs.info[n], c_n = info & 0xff;
+      const bool two = c_n == 2;
+      scv = two ? 1.f : (float)max(c_n, 1);
+      valid = !two || q - (info >> 8) == 0;
+    }
+    const uint32_t routed = __ballot_sync(FULL, valid);
+    if (valid) {
+      const int i = before + __popc(routed & below);
+      const float dx = x - e.x, dy = y - e.y;
+      cs.seg[i] = make_float4(x * scv, y * scv, e.z, e.w);
+      cs.tag[i] = make_float2(scv, (float)n);
+      cs.term[i] = sqrtf(dx * dx + dy * dy);
+    }
+    before += __popc(routed);
+  }
+  const int V = before;
+  __syncwarp();
+  // the wirelength in pin order (the pins without a term added +0 to it)
+  float wl = 0.f;
+  for (int i = 0; i < V; ++i) wl += cs.term[i];
+  // crossings of routed segments on different nets: pair k is (i, i + d
+  // mod V) with i = k mod V, d = k / V + 1, every unordered pair once
+  const int pairs = V * (V - 1) / 2;
+  int ints = 0;
+  if (pairs > 0) {
+    const int q32 = 32 / V, r32 = 32 - q32 * V;
+    int d = lane / V + 1, i = lane - (d - 1) * V;
+    for (int k = lane; k < pairs; k += 32) {
+      const int j = i + d < V ? i + d : i + d - V;
+      const float4 a = cs.seg[i], c = cs.seg[j];
+      const float2 ta = cs.tag[i], tc = cs.tag[j];
+      if (ta.y != tc.y)
+        ints += seg_intersect(a.x * tc.x, a.y * tc.x, a.z * tc.x, a.w * tc.x,
+                              c.x * ta.x, c.y * ta.x, c.z * ta.x, c.w * ta.x);
+      i += r32;
+      d += q32;
+      if (i >= V) {
+        i -= V;
+        ++d;
+      }
     }
   }
   wl_out = wl;
@@ -971,7 +1115,10 @@ __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
                                                int* segs) {
   float wl = 0.f, c_wl = 0.f;
   int ints = 0, c_ints = 0;
-  if constexpr (K != K_BEAM) centroid_wl_int(p, b, lane, c_wl, c_ints);
+  if constexpr (K != K_BEAM && GENERAL)
+    centroid_wl_int_general(p, b, lane, c_wl, c_ints);
+  if constexpr (K != K_BEAM && !GENERAL)
+    centroid_wl_int(p, b, lane, c_wl, c_ints);
   if constexpr (K != K_CENTROID && GENERAL)
     beam_wl_int_general(p, b, lane, segs, wl, ints);
   if constexpr (K != K_CENTROID && !GENERAL)
@@ -988,8 +1135,7 @@ __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
 // One net's pin -> component allocation, drawing call `call`: writes the
 // component of each of the net's M ranks to comp_of[0..M) and, when the net
 // is open, updates `space` (lane c: component c's free cells). Rank j is on
-// lane j; WIDE (M up to 48) puts ranks 32.. on a second slot.
-template <bool WIDE>
+// lane j (the default instantiation: M <= 32).
 __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
                              uint32_t call, int m, int k0, bool open,
                              int& space, int* comp_of, int lane) {
@@ -1021,17 +1167,9 @@ __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
   int bin = 0;
   for (int c = 0; c < C - 1; ++c)
     bin += ut > __shfl_sync(FULL, cw_cum, c) / tot_w;
-  int bin2 = 0;  // WIDE: rank lane + 32's
-  if constexpr (WIDE) {
-    const float ut2 = rng.uniform(call, M, lane + 32);
-    for (int c = 0; c < C - 1; ++c)
-      bin2 += ut2 > __shfl_sync(FULL, cw_cum, c) / tot_w;
-  }
   int cnt = 0;
   for (int c = 0; c < C; ++c) {
-    int got = __popc(__ballot_sync(FULL, lane < m && bin == c));
-    if constexpr (WIDE)
-      got += __popc(__ballot_sync(FULL, lane + 32 < m && bin2 == c));
+    const int got = __popc(__ballot_sync(FULL, lane < m && bin == c));
     if (lane == c) cnt = got;
   }
   cnt = min(cnt, s_space);
@@ -1045,24 +1183,147 @@ __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
   for (int c = 0; c < C; ++c) slot += lane >= __shfl_sync(FULL, bound, c);
   const int comp = __shfl_sync(FULL, sidx, min(slot, C - 1));
   if (lane < M) comp_of[lane] = comp;
-  if constexpr (WIDE) {
-    int slot2 = 0;
-    for (int c = 0; c < C; ++c)
-      slot2 += lane + 32 >= __shfl_sync(FULL, bound, c);
-    const int comp2 = __shfl_sync(FULL, sidx, min(slot2, C - 1));
-    if (lane + 32 < M) comp_of[lane + 32] = comp2;
-  }
   if (open) {
     const int left = __shfl_sync(FULL, s_space - cnt, pos & 31);
     if (cl) space = left;
   }
 }
 
+// A warp's shared scratch of allocate_net_general: per component, and per
+// position in the order by free space, the values every lane reads back.
+struct AllocScratch {
+  alignas(16) int key[MAX_C];     // component c: its sort key
+  alignas(16) int space[MAX_C];   // position c: its component's free space
+  alignas(16) float edge[MAX_C];  // position c: its bin's upper edge
+  alignas(16) int bins[MAX_C];    // position c: the ranks its bin drew
+  alignas(16) int order[MAX_C];   // position c: its component
+};
+__shared__ AllocScratch s_alloc[WARPS];
+// extra_pins<true>'s count of the draws a net takes
+__shared__ int s_net_draws[WARPS][MAX_N];
+
+// The MAX_C entries of a shared table, in registers.
+template <class T>
+__device__ __forceinline__ void load_c(const T* from, T (&to)[MAX_C]) {
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) to[c] = from[c];
+}
+
+// allocate_net for nets of up to MAX_M ranks (the general instantiation):
+// rank j on lane j % 32, slot j / 32. The same draws and the same f32
+// arithmetic in fewer warp steps: the values of the C <= MAX_C components
+// (their keys, then by position their free space, bin edges and bins'
+// counts) go through shared memory, and every lane works out the sort, the
+// cumulative weights, the water-fill and the slots from them in registers.
+// The cumulative weights are integer prefix sums (small integers, exact in
+// f32 in any order); each bin's edge is one division on its own lane; the
+// bins are counted by shared-memory atomics.
+__device__ void allocate_net_general(const FusedRolloutParams& p,
+                                     const Rng& rng, uint32_t call, int m,
+                                     int k0, bool open, int& space,
+                                     int* comp_of, int lane) {
+  AllocScratch& sh = s_alloc[threadIdx.x >> 5];
+  const int C = p.components, M = p.pins_per_net;
+  const bool cl = lane < C;
+  // components by free space, descending: the keys space*(C+1)+(C-1-i)
+  // are unique, so a component's position is the count of greater keys
+  const int key = space * (C + 1) + (C - 1 - lane);
+  if (cl) sh.key[lane] = key;
+  __syncwarp();
+  int v[MAX_C];
+  load_c(sh.key, v);
+  int pos = 0;
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) pos += c < C && v[c] > key;
+  if (cl) {
+    sh.order[pos] = lane;
+    sh.space[pos] = space;
+    sh.bins[lane] = 0;
+  }
+  __syncwarp();
+  // by position: free space s, its running sum; the first k positions
+  // share the ranks
+  int s[MAX_C];
+  load_c(sh.space, s);
+  int run = 0, not_enough = 0;
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) {
+    s[c] = c < C ? s[c] : 0;
+    run += s[c];
+    not_enough += c < C && run < m;
+  }
+  const int k = max(k0, min(not_enough + 1, C));
+  // lane c: position c's cumulative weight (of positions 0..min(c, k - 1))
+  // over the total, its bin's upper edge (the running sums once more:
+  // selected by value, not kept in an array indexed at run time)
+  const int mine = min(lane, k - 1);
+  int cw = 0, tot = 0;
+  run = 0;
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) {
+    run += s[c];
+    cw = c == mine ? run : cw;
+    tot = c == k - 1 ? run : tot;
+  }
+  if (lane < MAX_C) sh.edge[lane] = (float)cw / fmaxf((float)tot, 1e-9f);
+  __syncwarp();
+  float edge[MAX_C];
+  load_c(sh.edge, edge);
+  // lane j: rank j's uniform and bin (wide: rank j + 32's too)
+  const bool wide = M > 32;
+  const float ut = rng.uniform(call, M, lane);
+  int bin = 0;
+#pragma unroll
+  for (int c = 0; c < MAX_C - 1; ++c) bin += c < C - 1 && ut > edge[c];
+  if (lane < m) atomicAdd(&sh.bins[bin], 1);
+  if (wide) {
+    const float ut2 = rng.uniform(call, M, lane + 32);
+    int bin2 = 0;
+#pragma unroll
+    for (int c = 0; c < MAX_C - 1; ++c) bin2 += c < C - 1 && ut2 > edge[c];
+    if (lane + 32 < m) atomicAdd(&sh.bins[bin2], 1);
+  }
+  __syncwarp();
+  // the positions' counts, then the in-order water-fill of the residue
+  // into the remaining space, and where each position's ranks end
+  int cnt[MAX_C];
+  load_c(sh.bins, cnt);
+  int resid = m;
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) {
+    cnt[c] = c < C ? min(cnt[c], s[c]) : 0;
+    resid -= cnt[c];
+  }
+  int before = 0, left = 0, bound[MAX_C];
+#pragma unroll
+  for (int c = 0; c < MAX_C; ++c) {
+    const int free_c = s[c] - cnt[c];
+    cnt[c] += min(max(resid - before, 0), free_c);
+    before += free_c;
+    bound[c] = (c > 0 ? bound[c - 1] : 0) + cnt[c];
+    left = c == pos ? s[c] - cnt[c] : left;
+  }
+  // the position that takes rank j: the count of positions whose ranks
+  // end at or before j
+  const auto position = [&](int j) {
+    int slot = 0;
+#pragma unroll
+    for (int c = 0; c < MAX_C; ++c) slot += c < C && j >= bound[c];
+    return sh.order[min(slot, C - 1)];
+  };
+  if (lane < M) comp_of[lane] = position(lane);
+  if (wide && lane + 32 < M) comp_of[lane + 32] = position(lane + 32);
+  if (open && cl) space = left;
+}
+
 // Lane n's extra pins when max_ppn > min_ppn (generate :407-450,
 // allocate_pins_to_nets:1067): weights softmax(N(1/nn, 1/(net_distribution
 // + 1))) from Box-Muller normals (draws 7 and 8), a multinomial of the
 // `extra_total` extra pins (draw 9) capped at max_ppn - min_ppn per net,
-// then an in-order water-fill of the residue.
+// then an in-order water-fill of the residue. GENERAL: each net's share of
+// the total is one division on its own lane, and the draws' nets are
+// counted by shared-memory atomics.
+template <bool GENERAL>
 __device__ int extra_pins(const FusedRolloutParams& p, const Rng& rng,
                           int nn, int extra_total, int lane) {
   const int N = p.nets, span = p.max_ppn - p.ppn, T = span * N;
@@ -1079,21 +1340,45 @@ __device__ int extra_pins(const FusedRolloutParams& p, const Rng& rng,
   float tot = 0.f;  // in net order
   for (int n = 0; n < N; ++n) tot += __shfl_sync(FULL, e, n);
   float acc = 0.f, cprob = 0.f;
-  for (int n = 0; n < N; ++n) {
-    acc += __shfl_sync(FULL, e, n) / tot;
-    if (lane == n) cprob = acc;
+  if constexpr (GENERAL) {
+    const float share = e / tot;
+    for (int n = 0; n < N; ++n) {
+      acc += __shfl_sync(FULL, share, n);
+      if (lane == n) cprob = acc;
+    }
+  } else {
+    for (int n = 0; n < N; ++n) {
+      acc += __shfl_sync(FULL, e, n) / tot;
+      if (lane == n) cprob = acc;
+    }
   }
   // draw 9: element j on lane j % 32, binned and counted by ballot
+  // (GENERAL: by shared-memory atomics)
   const int draws = min(extra_total, T);
   int cnt = 0;
-  for (int j0 = 0; j0 < draws; j0 += 32) {
-    const int j = j0 + lane;
-    const float ut = rng.uniform(9, T, j);
-    int bin = 0;
-    for (int c = 0; c < N - 1; ++c) bin += ut > __shfl_sync(FULL, cprob, c);
-    for (int n = 0; n < N; ++n) {
-      const int got = __popc(__ballot_sync(FULL, j < draws && bin == n));
-      if (lane == n) cnt += got;
+  if constexpr (GENERAL) {
+    int* counts = s_net_draws[threadIdx.x >> 5];
+    if (lane < N) counts[lane] = 0;
+    __syncwarp();
+    for (int j0 = 0; j0 < draws; j0 += 32) {
+      const int j = j0 + lane;
+      const float ut = rng.uniform(9, T, j);
+      int bin = 0;
+      for (int c = 0; c < N - 1; ++c) bin += ut > __shfl_sync(FULL, cprob, c);
+      if (j < draws) atomicAdd(&counts[bin], 1);
+    }
+    __syncwarp();
+    cnt = lane < N ? counts[lane] : 0;
+  } else {
+    for (int j0 = 0; j0 < draws; j0 += 32) {
+      const int j = j0 + lane;
+      const float ut = rng.uniform(9, T, j);
+      int bin = 0;
+      for (int c = 0; c < N - 1; ++c) bin += ut > __shfl_sync(FULL, cprob, c);
+      for (int n = 0; n < N; ++n) {
+        const int got = __popc(__ballot_sync(FULL, j < draws && bin == n));
+        if (lane == n) cnt += got;
+      }
     }
   }
   const int cap = open ? min(span, extra_total) : 0;
@@ -1131,7 +1416,8 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
     const int tp = min(
         randint(p.ppn * nn, p.max_ppn * nn, rng.uniform(6, 1, 0)),
         total_area);
-    net_count += extra_pins(p, rng, nn, max(tp - p.ppn * nn, 0), lane);
+    net_count +=
+        extra_pins<GENERAL>(p, rng, nn, max(tp - p.ppn * nn, 0), lane);
     call_base = 10;
   }
   const int ncum = warp_scan(net_count, lane, N);
@@ -1142,10 +1428,15 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
                      : max(((p.pin_spread + 1) * b.numc) / 10, 1);
   k0 = min(k0, b.numc);
   __syncwarp();  // the last episode's reads of the tables are done
-  for (int n = 0; n < N; ++n)  // draws call_base .. call_base+N-1
-    allocate_net<GENERAL>(p, rng, call_base + n,
-                          __shfl_sync(FULL, net_count, n), k0, n < nn, space,
-                          table + n * M, lane);
+  for (int n = 0; n < N; ++n) {  // draws call_base .. call_base+N-1
+    const int m = __shfl_sync(FULL, net_count, n);
+    if constexpr (GENERAL)
+      allocate_net_general(p, rng, call_base + n, m, k0, n < nn, space,
+                           table + n * M, lane);
+    else
+      allocate_net(p, rng, call_base + n, m, k0, n < nn, space,
+                   table + n * M, lane);
+  }
 
   // draw call_base+N: a random cell order per component, the stable
   // ascending sort of uniform scores (unused cells 2.0) as ranks by
@@ -1289,9 +1580,7 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
 // ---- the kernel ------------------------------------------------------------
 
 template <int K, bool GENERAL>
-__global__ void __launch_bounds__(BLOCK_THREADS, GENERAL && K == K_CENTROID
-                                                     ? MIN_BLOCKS_GENERAL
-                                                     : MIN_BLOCKS)
+__global__ void __launch_bounds__(BLOCK_THREADS, MIN_BLOCKS)
 fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
                           FusedRolloutLeaves out, float* rsum_out,
                           int32_t* dcnt_out, int batch, int num_steps,

@@ -733,7 +733,8 @@ class _KernelParams(ctypes.Structure):
             "lam_w", "lam_i", "wl_norm", "int_norm", "penalty",
             "net_div")] + [
         (n, ctypes.c_int32) for n in (
-            "kernel", "beam_width", "component_n", "general")]
+            "kernel", "beam_width", "component_n", "general",
+            "row_stride", "stride_recip")]
 
 
 class _KernelLeaves(ctypes.Structure):
@@ -742,8 +743,18 @@ class _KernelLeaves(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _LEAVES]
 
 
+def _row_stride(params: EnvParams) -> int:
+    """The general instantiations' row stride (csrc/fused_warp.cuh, the
+    flat layout): a row a lane where both sides fit one, a run of whole
+    words for a row over 32 cells, rows end to end for a column over 32."""
+    if params.width > 32:
+        return 32 * -(-params.width // 32)
+    return params.width if params.height > 32 else 32
+
+
 def _kernel_params(params: EnvParams) -> _KernelParams:
     # ctypes rounds each host double to f32, as the JAX kernel's F32(...)
+    stride = _row_stride(params)
     return _KernelParams(
         params.height, params.width, params.max_components,
         params.max_num_nets, params.max_num_pins_per_net, params.max_pins,
@@ -760,7 +771,7 @@ def _kernel_params(params: EnvParams) -> _KernelParams:
         float(params.intersections_normalizer), _penalty(params),
         params.net_distribution + 1.0, KERNELS.index(kernel_name(params)),
         int(params.reward_beam_width), params.component_n,
-        int(needs_general(params)))
+        int(needs_general(params)), stride, -(-(1 << 22) // stride))
 
 
 @functools.lru_cache(maxsize=None)
@@ -768,7 +779,13 @@ def kernel_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, once per process;
     checks that its compiled capacities are ``KERNEL_CAPACITY``."""
     from placement_tpu_torch.ops import _build
-    lib = _build.load_library()
+    return load_kernel_library(_build.build()[0])
+
+
+def load_kernel_library(path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entry points; checks
+    that its compiled capacities are ``KERNEL_CAPACITY``."""
+    lib = ctypes.CDLL(str(path))
     lib.fused_rollout_launch.restype = ctypes.c_int
     lib.fused_rollout_launch.argtypes = [
         ctypes.POINTER(_KernelParams), ctypes.POINTER(_KernelLeaves),

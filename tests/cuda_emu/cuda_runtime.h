@@ -14,8 +14,10 @@
 // message instead of returning garbage. __shared__ arrays are `static`:
 // blocks run one after another, so each block sees its own.
 //
-// Kernels may not use block-level barriers (__syncthreads) or atomics:
-// neither is defined here, so such a source fails to compile.
+// Kernels may not use block-level barriers (__syncthreads): it is not
+// defined here, so such a source fails to compile. atomicAdd is a plain
+// read-modify-write: a lane runs alone until its next meeting, so no other
+// lane comes between the read and the write.
 
 #pragma once
 
@@ -65,6 +67,23 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   for (int i = 0; i < 4; ++i)
     r |= (unsigned)(v >> (8 * ((s >> (4 * i)) & 7)) & 0xff) << (8 * i);
   return r;
+}
+struct alignas(8) float2 {
+  float x, y;
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+template <class T>
+inline T atomicAdd(T* address, T v) {
+  static_assert(std::is_integral<T>::value, "integer atomics");
+  const T old = *address;
+  *address = old + v;
+  return old;
 }
 inline unsigned __float_as_uint(float f) {
   unsigned u;

@@ -160,6 +160,44 @@ GENERAL_CASES = {
         "height": 1, "width": 144, "min_component_h": 1,
         "max_component_h": 1, "min_component_w": 1, "max_component_w": 3,
         "min_num_components": 10, "max_num_components": 40}),
+    # the centroid route's per-net table full (24 nets), its 48 pins on
+    # both lane slots; then 48 routed segments, whose pairs pass lane 31
+    "nets24_ppn2_centroid": ("rectangle_pin", {
+        **EDGES["nets24_both"][1], "reward_type": "centroid"}),
+    "nets12_ppn4_centroid": ("rectangle_pin", {
+        **_ROOMY, "min_num_nets": 12, "max_num_nets": 12,
+        "min_num_pins_per_net": 4, "max_num_pins_per_net": 4}),
+    # nets left with no pin (a few cells cap the net count) or one
+    "nets_0_1_pins": ("rectangle_pin", {
+        "height": 12, "width": 12, "min_component_h": 1,
+        "max_component_h": 1, "min_component_w": 1, "max_component_w": 2,
+        "min_num_components": 2, "max_num_components": 4,
+        "min_num_nets": 6, "max_num_nets": 12, "min_num_pins_per_net": 1,
+        "max_num_pins_per_net": 3}),
+    "ppn1_both": ("rectangle_pin", {
+        **_ROOMY, "min_num_nets": 10, "max_num_nets": 12,
+        "min_num_pins_per_net": 1, "max_num_pins_per_net": 3,
+        "reward_type": "both"}),
+    # square and oblong footprints on one pin board: plane 1 copies plane 0
+    # for the square ones
+    "square_footprints_4x36": ("rectangle_pin", {
+        "height": 4, "width": 36, "min_component_h": 2, "max_component_h": 3,
+        "min_component_w": 2, "max_component_w": 3, "min_num_components": 6,
+        "max_num_components": 8, "min_num_nets": 4, "max_num_nets": 4,
+        "min_num_pins_per_net": 3, "max_num_pins_per_net": 3}),
+    # widths about a word: the anchor mask's column pattern (W <= 32) and
+    # its two runs (W > 32), the footprint's reach past 32 cells; on 4 x 33
+    # the anchor rows (H - ph + 1) * W span 3 to 5 words
+    "pin_4x31_nets10": ("rectangle_pin", {
+        "height": 4, "width": 31, "min_num_nets": 10, "max_num_nets": 10,
+        "min_num_pins_per_net": 2, "max_num_pins_per_net": 2}),
+    "pin_4x32_nets10": ("rectangle_pin", {
+        "height": 4, "width": 32, "min_num_nets": 10, "max_num_nets": 10,
+        "min_num_pins_per_net": 2, "max_num_pins_per_net": 2}),
+    "rect_4x33": ("rectangle", {
+        "height": 4, "width": 33, "min_component_h": 1, "max_component_h": 3,
+        "min_component_w": 1, "max_component_w": 3, "min_num_components": 10,
+        "max_num_components": 20}),
 }
 
 
@@ -192,6 +230,28 @@ def test_emulated_general_kernel_matches_plain_version(emulated_library,
     if params.has_pins:
         # some episodes were routed, not all penalties
         assert (rsum != dcnt * np.float32(torch_fused._penalty(params))).any()
+
+
+@pytest.mark.parametrize("case", sorted(GENERAL_CASES))
+def test_general_row_stride_fits_the_warp(case):
+    """The flat layout's row stride: a row a lane where both sides fit one,
+    whole words a row for a row over 32 cells (no word all padding), rows
+    end to end for a column over 32; the board's bits fit the warp's 32
+    words, and the stride's reciprocal divides every bit index exactly."""
+    config, overrides = GENERAL_CASES[case]
+    params = load_env_params(config).replace(**overrides)
+    H, W = params.height, params.width
+    kp = torch_fused._kernel_params(params)
+    S = kp.row_stride
+    assert S == torch_fused._row_stride(params) and S >= W
+    if H > 32:
+        assert S == W
+    else:
+        assert S % 32 == 0 and S - W < 32
+    assert H * S <= 32 * 32
+    t = np.arange(H * S, dtype=np.int64)
+    np.testing.assert_array_equal((t * kp.stride_recip) >> 22, t // S)
+    assert (t * kp.stride_recip).max() < 2 ** 32
 
 
 def test_emulated_library_is_a_test_aid_only():
