@@ -47,7 +47,8 @@ Phases (any failure raises and the exit code is not 0):
      build/torch_kernels/; reports ``ptxas -v`` for every kernel, and the
      general pin instantiations' registers and boards resident per SM
      beside their first build's (``GENERAL_PTXAS_PR14``); each must hold
-     32 boards per SM (all 4,096 at once)
+     32 boards per SM (all 4,096 at once); the general square's beside
+     its build before the redesign (``GENERAL_PTXAS_PR16``)
   3. TPU hardware goldens — k7 start, 128 boards, seed 1234, block 128: the
      rows of experiments/results/fused_hw_validation.json
   4. JAX goldens — zero start, 128 boards, seed 1234 (the varying-pins
@@ -64,13 +65,14 @@ Phases (any failure raises and the exit code is not 0):
      under each routing reward; the default instantiations' times and
      ``ptxas -v`` beside their recorded baseline
   5b. [envelope]: the general instantiations (up to 24 nets, 48 pins per
-     net, a side over 32 at area <= 144) on the eight edges of the JAX
+     net, a side over 32 at area <= 144) on the nine edges of the JAX
      kernel's envelope (tests/fixtures/torch_fused_zero_envelope_*.json):
      leaf hashes equal to the JAX kernel's at the fixture's size, kernel ==
      plain at 4096 boards (timed, with its bound, beside its recorded
-     time, ``GENERAL_MS_PR15``), and the matrix tool's fused row on each,
-     its launches equal to its calls; four of them timed under each
-     routing reward, two at 1024, 4096 and 16384 boards; the flagship's
+     times, ``GENERAL_MS_PR15`` and ``GENERAL_MS_PR16``), and the matrix
+     tool's fused row on each, its launches equal to its calls; four of
+     them timed under each routing reward, four at 1024, 4096 and 16384
+     boards; the flagship's
      rows forced onto the general instantiation, leaves and time beside
      the default one's
   6. main path 1, timed; the kernel's launch count must equal the calls
@@ -254,7 +256,8 @@ JAX_GOLDENS = {
 #: general instantiations take (tests/test_torch_fused_envelope.py), each
 #: with its JAX golden (16 boards, block 8, two chained 20-step chunks)
 ENVELOPE_EDGES = ("web_nets10", "nets24_both", "ppn24_beam4", "ppn48_beam2",
-                  "wide_rect", "tall_square", "wide_pin", "web_nets10_both")
+                  "wide_rect", "tall_square", "wide_square", "wide_pin",
+                  "web_nets10_both")
 ENVELOPE_BLOCK = 128
 #: the edges timed under each routing reward: what the general beam route
 #: costs beside the rest of a chunk
@@ -280,6 +283,9 @@ BASELINE_PTXAS = {"centroid": (64, 40, 0), "beam": (64, 48, 4),
 #: block; 3,168 of 4,096 boards resident for the beam, 2,112 for "both")
 GENERAL_PTXAS_PR14 = {"centroid": (70, 24), "beam": (80, 24),
                       "both": (88, 16)}
+#: the general square instantiation before its redesign (PERF.md §6, row
+#: 4g; CUDA 12.8's ptxas): registers, stack frame bytes, spill store bytes
+GENERAL_PTXAS_PR16 = {"square": (48, 0, 0)}
 #: the boards one SM must hold at once in each general pin instantiation:
 #: 32, so that 4,096 boards are resident at once on 132 SMs
 GENERAL_BOARDS_PER_SM = 32
@@ -290,6 +296,9 @@ GENERAL_MS_PR15 = {"web_nets10": 0.84830, "wide_pin": 0.43728,
                    "nets24_both": 1.39485, "web_nets10_both": 1.06724,
                    "ppn24_beam4": 1.68295, "ppn48_beam2": 1.57196,
                    "wide_rect": 0.13681, "tall_square": 0.12996}
+#: [envelope]'s edges as recorded before the general square kernel was
+#: redesigned (PERF.md §6, row 4g; NVIDIA H100 80GB HBM3, 700.00 W)
+GENERAL_MS_PR16 = {"tall_square": 0.11031}
 #: main path 3's ranks: chained seeds
 RANK_SEEDS = (1, 2)
 #: the kernels (one warp per board; 8 boards per CUDA block, the reduced
@@ -299,9 +308,9 @@ PARTIAL_BATCH, PARTIAL_BLOCK = 1004, 4
 #: the matrix rows held to plain at that batch: one per kernel
 PARTIAL_ROWS = ("pin_centroid", "pin_beam", "pin_both", "square", "rect")
 #: boards at which the centroid, beam and rect kernels, and the general
-#: ones on two edges, are timed for their scaling
+#: ones on four edges, are timed for their scaling
 SCALING_BATCHES = (1024, 4096, 16384)
-SCALING_EDGES = ("web_nets10", "wide_rect")
+SCALING_EDGES = ("web_nets10", "wide_rect", "tall_square", "wide_square")
 #: the reduced kernels' capacity shapes, held to plain at this batch: row,
 #: overrides. SQUARE's footprint is (component_n, component_n), not the
 #: component ranges; RECT's 64 components fill the second lane slot of the
@@ -382,9 +391,10 @@ def _card():
 def phase_build():
     """Builds the kernels; prints ``ptxas -v`` of every instantiation, the
     default ones' (registers, stack frame, spill stores) beside their
-    recorded baseline (``BASELINE_PTXAS``), and the general pin ones'
+    recorded baseline (``BASELINE_PTXAS``), the general pin ones'
     registers and boards resident per SM beside PR 14's
-    (``GENERAL_PTXAS_PR14``)."""
+    (``GENERAL_PTXAS_PR14``), and the general square's beside its build
+    before the redesign (``GENERAL_PTXAS_PR16``)."""
     import torch
     from placement_tpu_torch.ops import _build, fused_rollout
     lib, seconds = _build.build()
@@ -427,6 +437,11 @@ def phase_build():
         _check(now[True] >= GENERAL_BOARDS_PER_SM,
                f"{k}_general: {now[True]} boards resident per SM, under "
                f"{GENERAL_BOARDS_PER_SM}")
+    for k, was in GENERAL_PTXAS_PR16.items():
+        got = usage.get(f"{k}_general", {})
+        got = (got.get("regs"), got.get("stack"), got.get("spill"))
+        print(f"[build] {k}_general: (registers, stack frame B, spill stores "
+              f"B) {got} (GENERAL_PTXAS_PR16: {was})")
 
 
 def phase_hw_golden(kernel):
@@ -679,10 +694,14 @@ def phase_envelope():
                                     ENVELOPE_BLOCK, plain_turns=False)
         row, _ = bm.measure(name, params, "envelope edge", BATCH,
                             device="cuda", block=ENVELOPE_BLOCK)
+        was = "; ".join(f"{got[1] / rec[name]!r} x {label}'s {rec[name]!r}"
+                        for label, rec in (
+                            ("GENERAL_MS_PR15", GENERAL_MS_PR15),
+                            ("GENERAL_MS_PR16", GENERAL_MS_PR16))
+                        if name in rec) or "no recorded time"
         print(f"[envelope] {name} ({row['kernel']} kernel, general "
               f"instantiation): {BATCH} boards, block {ENVELOPE_BLOCK}: "
-              f"kernel {got[1]!r} ms per chunk ({got[1] / GENERAL_MS_PR15[name]!r}"
-              f" x the recorded {GENERAL_MS_PR15[name]!r}), plain {got[2]!r} "
+              f"kernel {got[1]!r} ms per chunk ({was}), plain {got[2]!r} "
               f"ms, bound {got[3]!r} ms by {got[4]}; bench_matrix.measure "
               f"{row['steps_per_sec']!r} env-steps/s, {row['launches']} "
               f"launches for {row['calls']} calls, {row['episodes']} "
@@ -766,8 +785,8 @@ SPLIT_PHASES = {
 #: phase_turns run; "<edge>/<reward>" runs an edge under another reward
 PHASE_ROWS = ("web_nets10", "nets24_both/centroid", "nets24_both",
               "wide_pin", "web_nets10_both", "ppn24_beam4", "ppn48_beam2",
-              "wide_rect", "tall_square", "pin_centroid", "pin_beam",
-              "pin_both", "rect", "square", "varpin_web",
+              "wide_rect", "tall_square", "wide_square", "pin_centroid",
+              "pin_beam", "pin_both", "rect", "square", "varpin_web",
               "pin_centroid/general", "pin_beam/general", "rect/general")
 
 _PROF = r"""
@@ -840,6 +859,24 @@ _STAMPS = (
      "    step<K, FLAT>", "", ""),
     ("fused_rollout.cu", "  store_rows<FLAT>(p, out.grid + b * A, bd.grid, "
      "lane);\n", _FLUSH, ""),
+    # the general square kernel (four boards a warp: its cycles are a
+    # warp's, counted once a warp)
+    ("fused_rollout.cu", "  // sample the k-th legal anchor:",
+     "  long long t_ = clock64();\n", ""),
+    ("fused_rollout.cu", "  if (FIRST || WHOLE) flat_rowcol(p, t, xx, yy);\n",
+     "", "  PHASE_ADD(0, t_);\n"),
+    ("fused_rollout.cu", "  b.rsum = b.rsum + (alive ? 1.0f : 0.0f);\n", "",
+     "  PHASE_ADD(1, t_);\n"),
+    ("fused_rollout.cu", "  const bool done = placed_all || empty || !alive;"
+     "\n", "", "  PHASE_ADD(2, t_);\n"),
+    ("fused_rollout.cu", "  b.fresh = b.fresh || done;\n", "",
+     "  PHASE_ADD(4, t_);\n"),
+    ("fused_rollout.cu", "  if (num_steps > 0) {\n    rng.salt = step_salt("
+     "blk_salt, 0);\n", "  if (lane == 0)\n    for (int i = 0; i < 8; ++i) "
+     "s_phase_clocks[threadIdx.x >> 5][i] = 0;\n  long long t_loop = "
+     "clock64();\n", ""),
+    ("fused_rollout.cu", "anchors, sl, lane, words, 0, 0, bd);\n  }\n", "",
+     _FLUSH.replace("[warp]", "[threadIdx.x >> 5]")),
 )
 
 
@@ -956,16 +993,17 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
               f"cycles {json.dumps(cycles)}", flush=True)
 
 
-def phase_turns(parent, rows=PHASE_ROWS):
+def phase_turns(parent, rows=PHASE_ROWS, this=REPO):
     """The kernel sources of another checkout (``parent``, its root) and
-    this checkout's, each built into build/kernel_phases/, on each row at
-    ``BATCH`` boards: the same chunk's leaves, board sums and done counts
-    equal bit for bit, then ms per chunk in turns parent, this, this,
-    parent, and the smaller of each pair."""
+    of ``this`` one (by default this checkout), each built into
+    build/kernel_phases/, on each row at ``BATCH`` boards: the same chunk's
+    leaves, board sums and done counts equal bit for bit, then ms per chunk
+    in turns parent, this, this, parent, and the smaller of each pair."""
     import torch
     from placement_tpu_torch.ops import _build, fused_rollout as fr
     libs = {}
-    for tag, root in (("parent", pathlib.Path(parent)), ("this", REPO)):
+    for tag, root in (("parent", pathlib.Path(parent)),
+                      ("this", pathlib.Path(this))):
         src = root / "placement_tpu_torch" / "ops" / "csrc"
         path, seconds = _build.build(src, REPO / "build" / "kernel_phases")
         libs[tag] = fr.load_kernel_library(path)

@@ -1,8 +1,8 @@
 // What the fused rollout's two kernel sources share: the C interface
 // (parameters, leaf pointers), the fixed capacities, the specialisations,
 // the counter-hash PRNG of the JAX kernel and the routing rewards' crossing
-// predicate. Both sources run one warp per board; the row-mask helpers they
-// share are fused_warp.cuh's.
+// predicate. Both sources run one warp per board (the general square four,
+// on 8-lane segments); the row-mask helpers they share are fused_warp.cuh's.
 //
 //   fused_rollout.cu       the reduced kernels: K_SQUARE, K_RECT; the C
 //                          entry points

@@ -1,5 +1,5 @@
-// Fused rollout chunk of the reduced kernels, one warp per board, and the C
-// entry points of the kernel library.
+// Fused rollout chunk of the reduced kernels, one warp per board (four for
+// the general square), and the C entry points of the kernel library.
 //
 // Replaces the Pallas TPU kernel of placement_tpu/ops/fused_rollout.py
 // (make_fused_rollout's pl.pallas_call at :866, body _build_kernel
@@ -7,11 +7,12 @@
 // step's sampling :610-643 and reward :711-713): two instantiations of
 // fused_rollout_reduced_kernel<K, FLAT> each (enum Kernel in
 // fused_common.cuh), a grid row per lane (sides <= 32) and, for a board
-// with a side over 32, its bit string over the lanes (fused_warp.cuh).
+// with a side over 32, its bit string over the lanes (fused_warp.cuh), or
+// for the general square over an 8-lane segment (below).
 // No pin tables, +1 per placement, one (SQUARE) or two (RECT) orientation
 // planes. The pin kernels (K_CENTROID, K_BEAM, K_BOTH) are
 // fused_rollout_warp.cu's; fused_rollout_launch below dispatches to them.
-// A warp runs the whole num_steps chunk of its board: random legal-action
+// A warp runs the whole num_steps chunk of its boards: random legal-action
 // sampling, placement, the next legality planes, the done test, and on
 // episode end the regeneration of a fresh instance.
 //
@@ -189,6 +190,401 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
   generate<K, FLAT>(p, rng, b, lane);
 }
 
+// ---- the general SQUARE kernel: four boards a warp ------------------------
+//
+// A general square board (a side over 32, area <= 144) is at most 8 words
+// of the flat layout: a column over 32 cells has W <= 4 and S = W, so
+// ceil(H W / 32) <= 5 words; a row over 32 cells has H <= 4 and S = 32
+// ceil(W / 32), so H S / 32 <= 8 (4 x 36 -> 8, 3 x 48 -> 6, 1 x 144 -> 5).
+// So a board sits on an aligned segment of SEG = 8 lanes, word sl = lane & 7
+// on lane sl of its segment, and a warp runs four boards. Every warp
+// operation of a step serves the four at once: shuffles take width SEG,
+// ballots are cut to the segment's byte, sums are scans over the segment.
+// The step has no branch that differs between the segments: alive, done
+// and the regeneration are selects.
+//
+// SQUARE's footprint is always n x n (component_n) and its grid only gains
+// cells, so the legality plane is not rebuilt from the grid each step (a
+// cover of log2 n funnels a direction and the anchor mask): painting the
+// n x n square at (xx, yy) removes exactly the anchors whose window meets
+// it, rows xx - n + 1 .. xx + n - 1 and columns yy - n + 1 .. yy + n - 1,
+// so plane' = plane & ~kill(xx, yy). On done the board takes the anchor
+// mask, a constant of the chunk. The first step after the load still
+// rebuilds the plane from the grid, as JAX's kernel does (it samples from
+// the loaded plane0 and then recomputes from the grid, whatever plane0
+// held, and paints the component under the loaded cursor, whatever its
+// size); from then on the plane equals free(grid) by induction. The count
+// of legal anchors is the segment's scan, which the sampling needs anyway;
+// whether the plane is empty is one ballot.
+//
+// A footprint and a kill mask are constant patterns moved to the sampled
+// bit, a funnel shift a lane (SegWord): with rows end to end (S = W <= 4)
+// the n x n square and the (2n - 1)-square, rows W apart, fit 32 bits and
+// move by the bit index alone (a kill bit left of column 0 lands on a
+// column past W - n of the row above, never an anchor; none passes column
+// W - 1, as the anchor's square ends there); where S is whole words a word
+// lies in one row, which takes the run of n (2n - 1) columns or nothing.
+// The kernel is bound by the latency of a step's chain (4 boards a warp
+// leave 2 warps a scheduler at 4096 boards), so each step's uniform is
+// drawn ahead: lane sl draws step t0 + sl's every SEG steps, and a step
+// takes its own with one shuffle.
+
+constexpr int SEG = 8;                     // lanes (words) a board
+constexpr int SEG_BOARDS = 32 / SEG;       // boards a warp
+constexpr uint32_t SEG_BITS = (1u << SEG) - 1u;
+constexpr int SEG_ROUNDS = SEG;            // 32-cell rounds of a board's leaf
+
+// Inclusive prefix sum over the segment's lanes 0 .. words - 1 (the
+// board's words; the later lanes' sums are not used).
+__device__ __forceinline__ int seg_scan(int v, int sl, int words) {
+#pragma unroll
+  for (int d = 1; d < SEG; d <<= 1) {
+    if (d >= words) break;
+    const int u = __shfl_up_sync(FULL, v, d, SEG);
+    if (sl >= d) v += u;
+  }
+  return v;
+}
+
+// The segment's bits of a warp ballot (bit i: lane i of the segment).
+__device__ __forceinline__ uint32_t seg_ballot(bool pred, int lane) {
+  return (__ballot_sync(FULL, pred) >> (lane & ~(SEG - 1))) & SEG_BITS;
+}
+
+// Word sl of the board's bit string moved s bits towards bit 0 (bit t of
+// the result = bit t + s), 0 past the segment: flat_down on a segment.
+__device__ __forceinline__ uint32_t seg_down(uint32_t v, int s, int sl) {
+  const int q = s >> 5, r = s & 31, src = sl + q;
+  const uint32_t lo0 = __shfl_sync(FULL, v, src & (SEG - 1), SEG);
+  const uint32_t hi0 = __shfl_sync(FULL, v, (src + 1) & (SEG - 1), SEG);
+  const uint32_t lo = src < SEG ? lo0 : 0u;
+  const uint32_t hi = src + 1 < SEG ? hi0 : 0u;
+  return r == 0 ? lo : (uint32_t)((((uint64_t)hi << 32) | lo) >> r);
+}
+
+// The pattern `pat` (bit 31 clear) with its bit 0 moved to bit d of a
+// word: pat << d, or pat >> -d for d < 0; nothing of it for |d| >= 32.
+__device__ __forceinline__ uint32_t moved(uint32_t pat, int d) {
+  d = min(max(d, -31), 32);
+  return (uint32_t)(((uint64_t)pat << 32) >> (32 - d));
+}
+
+// The position of the k-th (0-based) set bit of m, for 0 <= k < popc(m):
+// halves of the remaining window by their popcounts.
+__device__ __forceinline__ int nth_set_bit(uint32_t m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int half = 16; half > 0; half >>= 1) {
+    const int c = __popc((m >> pos) & ((1u << half) - 1u));
+    if (k >= c) {
+      k -= c;
+      pos += half;
+    }
+  }
+  return pos;
+}
+
+// Word sl of a board's [H*W] f32 leaf at `cells` (nullptr: an empty
+// board), as load_rows<true> cuts it; the segment reads 32 contiguous cells
+// a round, lane sl the cells SEG j + sl, and the segment's bytes of the
+// round's 32 / SEG ballots are its 32 bits. The rounds are unrolled to the
+// most a board holds, so every load is issued before the first ballot.
+__device__ uint32_t seg_load(const FusedRolloutParams& p, const float* cells,
+                             int sl, int lane) {
+  const int H = p.height, W = p.width, A = H * W;
+  int x, y0;
+  flat_rowcol(p, 32 * sl, x, y0);
+  const bool packed = p.row_stride == W;  // rows end to end
+  const int first = packed ? 32 * sl : x * W + y0;
+  const int last = packed ? min(first + 32, A)
+                   : x < H ? x * W + min(y0 + 32, W) : first;
+  uint32_t word = 0u;
+#pragma unroll
+  for (int r = 0; r < SEG_ROUNDS; ++r) {
+    const int a0 = 32 * r;
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int j = 0; j < 32 / SEG; ++j) {
+      const int a = a0 + SEG * j + sl;
+      const bool set = cells != nullptr && a < A && cells[a] != 0.0f;
+      bits |= seg_ballot(set, lane) << (SEG * j);
+    }
+    const int lo = max(first, a0), hi = min(last, a0 + 32);
+    if (lo < hi) {
+      const uint32_t part = hi - lo >= 32 ? FULL : ((1u << (hi - lo)) - 1u);
+      word |= ((bits >> (lo - a0)) & part) << (lo - first);
+    }
+  }
+  return word;
+}
+
+// Writes a board's [H*W] f32 leaf at `cells` (nullptr: nothing) from word
+// sl of its bit string, 32 contiguous cells a round; a cell's row is a
+// multiply by W's reciprocal (exact for a < 2^10, as flat_rowcol's).
+__device__ void seg_store(const FusedRolloutParams& p, float* cells,
+                          uint32_t word, int sl) {
+  const int W = p.width, A = p.height * W;
+  const uint32_t recip = ((1u << 22) + W - 1) / W;
+  for (int a0 = 0; a0 < A; a0 += 32) {
+#pragma unroll
+    for (int j = 0; j < 32 / SEG; ++j) {
+      const int a = a0 + SEG * j + sl;
+      const int x = (int)(((uint32_t)a * recip) >> 22);
+      const int t = x * p.row_stride + a - x * W;  // the cell's bit
+      const uint32_t m = __shfl_sync(FULL, word, (t >> 5) & (SEG - 1), SEG);
+      if (cells != nullptr && a < A) cells[a] = (float)((m >> (t & 31)) & 1u);
+    }
+  }
+}
+
+// Word sl's place on the board and the chunk's patterns. Where S is whole
+// words (a row over 32 cells, or sides <= 32) the word is in row `row`
+// from column `col`, and the patterns are runs of n and 2n - 1 columns;
+// else (rows end to end) the n x n square and the (2n - 1)-square, rows W
+// apart, from their first cell.
+struct SegWord {
+  int row, col;
+  uint32_t foot, kill;
+};
+
+template <bool WHOLE>
+__device__ __forceinline__ SegWord seg_word(const FusedRolloutParams& p,
+                                            int sl) {
+  SegWord g;
+  const int W = p.width, n = max(p.component_n, 1);
+  flat_rowcol(p, 32 * sl, g.row, g.col);
+  const uint32_t run = (1u << min(n, 31)) - 1u;
+  const uint32_t run2 = (1u << min(2 * n - 1, 31)) - 1u;
+  g.foot = run;
+  g.kill = run2;
+  if (!WHOLE) {
+    uint64_t foot = 0ull, kill = 0ull;  // n <= W <= 4: up to 31 bits
+    for (int i = 0; i < 2 * n - 1 && i * W < 64; ++i) {
+      if (i < n) foot |= (uint64_t)run << (i * W);
+      kill |= (uint64_t)run2 << (i * W);
+    }
+    g.foot = (uint32_t)foot & 0x7fffffffu;
+    g.kill = (uint32_t)kill & 0x7fffffffu;
+  }
+  return g;
+}
+
+// Word sl of the cells of rows x0 .. x0 + rows - 1 and columns c0 .. c0 +
+// cols - 1 (0 <= c0, c0 + cols <= W, x0 + rows <= H; an empty rectangle
+// for rows or cols <= 0): the loaded component the first step paints.
+template <bool WHOLE>
+__device__ __forceinline__ uint32_t seg_rect(const FusedRolloutParams& p,
+                                             const SegWord& g, int sl,
+                                             int x0, int rows, int c0,
+                                             int cols) {
+  rows = max(rows, 0);
+  cols = max(cols, 0);
+  if (WHOLE)
+    return (unsigned)(g.row - x0) < (unsigned)rows
+               ? flat_run(c0 - g.col, cols, 0)
+               : 0u;
+  const int W = p.width;
+  uint64_t rep = 0ull;
+  for (int j = 0; j < 64; j += W) rep |= 1ull << j;
+  const uint64_t pat = (uint64_t)(((1u << cols) - 1u) << c0) * rep;
+  return (uint32_t)(pat >> (32 * sl - g.row * W)) &
+         flat_run(x0 * W, rows * W, sl);
+}
+
+// A board of the general square kernel, on its segment: word sl of the
+// grid and of the plane; the rest is the same on the segment's lanes.
+struct SquareBoard {
+  uint32_t grid, pl;
+  int32_t cur, numc;
+  int32_t bad;   // the first component entry that is not n x n (C if none)
+  float rsum;
+  int32_t dcnt;
+  bool fresh;    // regenerated in this chunk
+};
+
+// One step of the general square kernel (:610-643, :711-713, generate
+// :364-377) with the step's uniform u. FIRST: the step after the load,
+// which paints the loaded component under the cursor (h0, w0) and rebuilds
+// the plane from the grid; later steps paint n x n and take the kill mask
+// off the plane.
+template <bool FIRST, bool WHOLE>
+__device__ __forceinline__ void square_step(const FusedRolloutParams& p,
+                                            float u, const SegWord& g,
+                                            uint32_t anchors, int sl,
+                                            int lane, int words, int h0,
+                                            int w0, SquareBoard& b) {
+  const int H = p.height, W = p.width, n = p.component_n;
+  // sample the k-th legal anchor: the lane whose word holds it finds its
+  // bit while the ballot finds the lane
+  const int pc = __popc(b.pl);
+  const int incl = seg_scan(pc, sl, words);
+  const int count = __shfl_sync(FULL, incl, words - 1, SEG);
+  const bool alive = count > 0;
+  // floorf(u * total), clamped to [0, total - 1] as the JAX kernel does in
+  // f32: the same values in integers
+  const int k = max(min(__float2int_rd(u * (float)count), count - 1), 0);
+  const int cell = 32 * sl + nth_set_bit(b.pl, k - (incl - pc));
+  const uint32_t past = seg_ballot(incl > k, lane);
+  const int t = __shfl_sync(FULL, cell, (__ffs(past) - 1) & (SEG - 1), SEG);
+  int xx = 0, yy = 0;
+  if (FIRST || WHOLE) flat_rowcol(p, t, xx, yy);
+  // place it for +1
+  uint32_t foot;
+  if (FIRST)
+    foot = seg_rect<WHOLE>(p, g, sl, xx, min(h0, H - xx), yy,
+                           min(w0, W - yy));
+  else if (WHOLE)
+    foot = (unsigned)(g.row - xx) < (unsigned)n ? moved(g.foot, yy - g.col)
+                                                 : 0u;
+  else
+    foot = moved(g.foot, t - 32 * sl);
+  b.grid |= alive ? foot : 0u;
+  b.cur += alive ? 1 : 0;
+  b.rsum = b.rsum + (alive ? 1.0f : 0.0f);
+  // the next component's plane
+  const bool placed_all = b.cur >= b.numc;
+  const int ci = min(b.cur, p.components - 1);
+  const bool square = ci >= 0 && ci < b.bad && !placed_all;
+  if (FIRST) {
+    uint32_t occ = 0u;
+    if (n > 0) {
+      occ = b.grid;
+      for (int s = 1; s < n;) {
+        const int d = min(s, n - s);
+        occ |= seg_down(occ, d, sl);
+        s += d;
+      }
+      for (int s = 1; s < n;) {
+        const int d = min(s, n - s);
+        occ |= seg_down(occ, d * p.row_stride, sl);
+        s += d;
+      }
+    }
+    b.pl = square ? ~occ & anchors : 0u;
+  } else {
+    const uint32_t kill =
+        WHOLE ? ((unsigned)(g.row - xx + n - 1) < (unsigned)(2 * n - 1)
+                     ? moved(g.kill, yy - n + 1 - g.col)
+                     : 0u)
+              : moved(g.kill, t - (n - 1) * (W + 1) - 32 * sl);
+    b.pl = square ? b.pl & ~kill : 0u;
+  }
+  const bool empty = seg_ballot(b.pl != 0u, lane) == 0u;  // every lane
+  const bool done = placed_all || empty || !alive;
+  // on done, a fresh instance: an empty grid, n x n components, the anchors
+  b.dcnt += done ? 1 : 0;
+  b.grid = done ? 0u : b.grid;
+  b.pl = done ? anchors : b.pl;
+  b.cur = done ? 0 : b.cur;
+  b.numc = done ? H * W : b.numc;
+  b.bad = done ? p.components : b.bad;
+  b.fresh = b.fresh || done;
+}
+
+// The chunk's steps (WHOLE: S is whole words). Lane sl draws the uniform
+// of step t0 + sl every SEG steps (call 1 of the step, with its board's
+// PRNG row and salt), and step t takes lane (t - t0)'s.
+template <bool WHOLE>
+__device__ __forceinline__ void square_steps(const FusedRolloutParams& p,
+                                             Rng& rng, uint32_t blk_salt,
+                                             int num_steps, int sl, int lane,
+                                             int h0, int w0,
+                                             SquareBoard& bd) {
+  const int n = p.component_n;
+  const int words = (p.height * p.row_stride + 31) >> 5;
+  const SegWord g = seg_word<WHOLE>(p, sl);
+  const uint32_t anchors =
+      n <= p.height && n <= p.width ? flat_anchors(p, n, n, sl) : 0u;
+  if (num_steps > 0) {
+    rng.salt = step_salt(blk_salt, 0);
+    square_step<true, WHOLE>(p, rng.uniform(1, 1, 0), g, anchors, sl, lane,
+                             words, h0, w0, bd);
+  }
+  float ahead = 0.0f;
+  for (int t = 1; t < num_steps; ++t) {
+    const int i = (t - 1) & (SEG - 1);
+    if (i == 0) {
+      rng.salt = step_salt(blk_salt, t + sl);
+      ahead = rng.uniform(1, 1, 0);
+    }
+    square_step<false, WHOLE>(p, __shfl_sync(FULL, ahead, i, SEG), g,
+                              anchors, sl, lane, words, 0, 0, bd);
+  }
+}
+
+// The chunk of the general square kernel for the four boards of a warp
+// (segment lane / SEG is board bi). A segment past the batch takes part in
+// every warp operation on empty leaves and writes nothing.
+__device__ void square_general_chunk(const FusedRolloutParams& p,
+                                     const FusedRolloutLeaves& in,
+                                     const FusedRolloutLeaves& out,
+                                     float* rsum_out, int32_t* dcnt_out,
+                                     int bi, bool valid, int num_steps,
+                                     int block, uint32_t seed, int lane) {
+  const int sl = lane & (SEG - 1);
+  const int A = p.height * p.width, C = p.components, P = p.pins;
+  const int n = p.component_n;
+  const int64_t b = bi;
+
+  SquareBoard bd;
+  bd.grid = seg_load(p, valid ? in.grid + b * A : nullptr, sl, lane);
+  bd.pl = seg_load(p, valid ? in.plane0 + b * A : nullptr, sl, lane);
+  bd.cur = valid ? in.cursor[b] : 0;
+  bd.numc = valid ? in.num_components[b] : 0;
+  int bad = C;
+  for (int c = sl; valid && c < C; c += SEG)
+    if (in.comp_h[b * C + c] != n || in.comp_w[b * C + c] != n)
+      bad = min(bad, c);
+#pragma unroll
+  for (int d = 1; d < SEG; d <<= 1)
+    bad = min(bad, __shfl_xor_sync(FULL, bad, d, SEG));
+  bd.bad = bad;
+  const int ci = min(bd.cur, C - 1);
+  const int h0 = valid && ci >= 0 ? in.comp_h[b * C + ci] : 0;
+  const int w0 = valid && ci >= 0 ? in.comp_w[b * C + ci] : 0;
+  bd.rsum = 0.0f;
+  bd.dcnt = 0;
+  bd.fresh = false;
+
+  Rng rng;
+  rng.row = (uint32_t)(bi % block);
+  const uint32_t blk_salt = block_salt(bi, block, seed);
+  if (p.row_stride % 32 == 0)
+    square_steps<true>(p, rng, blk_salt, num_steps, sl, lane, h0, w0, bd);
+  else
+    square_steps<false>(p, rng, blk_salt, num_steps, sl, lane, h0, w0, bd);
+
+  // plane 1 copies plane 0 once a step has run
+  const uint32_t pl1 = num_steps > 0
+      ? bd.pl : seg_load(p, valid ? in.plane1 + b * A : nullptr, sl, lane);
+  seg_store(p, valid ? out.grid + b * A : nullptr, bd.grid, sl);
+  seg_store(p, valid ? out.plane0 + b * A : nullptr, bd.pl, sl);
+  seg_store(p, valid ? out.plane1 + b * A : nullptr, pl1, sl);
+  if (!valid) return;  // no warp operation follows
+  for (int c = sl; c < C; c += SEG) {
+    out.comp_h[b * C + c] = bd.fresh ? n : in.comp_h[b * C + c];
+    out.comp_w[b * C + c] = bd.fresh ? n : in.comp_w[b * C + c];
+  }
+  // the pin leaves pass through; a regenerated board has none
+  const auto pins_through = [&](int32_t* to, const int32_t* from) {
+    for (int q = sl; q < P; q += SEG)
+      to[b * P + q] = bd.fresh ? -1 : from[b * P + q];
+  };
+  pins_through(out.pin_rel_x, in.pin_rel_x);
+  pins_through(out.pin_rel_y, in.pin_rel_y);
+  pins_through(out.pin_abs_x, in.pin_abs_x);
+  pins_through(out.pin_abs_y, in.pin_abs_y);
+  pins_through(out.pin_net, in.pin_net);
+  pins_through(out.pin_comp, in.pin_comp);
+  if (sl == 0) {
+    out.cursor[b] = bd.cur;
+    out.num_components[b] = bd.numc;
+    out.num_pins[b] = bd.fresh ? 0 : in.num_pins[b];
+    rsum_out[b] = bd.rsum;
+    dcnt_out[b] = bd.dcnt;
+  }
+}
+
 // ---- the kernel ------------------------------------------------------------
 
 template <int K, bool FLAT>
@@ -198,6 +594,14 @@ fused_rollout_reduced_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
                              int32_t* dcnt_out, int batch, int num_steps,
                              int block, uint32_t seed) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if constexpr (K == K_SQUARE && FLAT) {
+    const int first = (blockIdx.x * WARPS + warp) * SEG_BOARDS;
+    if (first >= batch) return;  // the whole warp; no block barrier follows
+    const int bi = first + lane / SEG;
+    square_general_chunk(p, in, out, rsum_out, dcnt_out, bi, bi < batch,
+                         num_steps, block, seed, lane);
+    return;
+  }
   const int bi = blockIdx.x * WARPS + warp;
   if (bi >= batch) return;  // the whole warp; no block barrier follows
   const int A = p.height * p.width, C = p.components, P = p.pins;
@@ -267,7 +671,8 @@ void launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
             const FusedRolloutLeaves& out, float* rsum, int32_t* dcnt,
             int batch, int num_steps, int block, uint32_t seed,
             cudaStream_t stream) {
-  const int grid = (batch + WARPS - 1) / WARPS;
+  const int boards = K == K_SQUARE && p.general ? WARPS * SEG_BOARDS : WARPS;
+  const int grid = (batch + boards - 1) / boards;
   if (p.general)
     fused_rollout_reduced_kernel<K, true><<<grid, BLOCK_THREADS, 0, stream>>>(
         p, in, out, rsum, dcnt, batch, num_steps, block, seed);
@@ -277,9 +682,12 @@ void launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
 }
 
 // Whether the instantiation that p.general picks holds p's board and, for
-// the pin kernels, its nets.
+// the pin kernels, its nets. The general square holds a board of at most
+// SEG words.
 bool fits(const FusedRolloutParams& p) {
   const bool rows = p.height <= MAX_H && p.width <= MAX_W;
+  if (p.general && p.kernel == K_SQUARE && p.height * p.row_stride > 32 * SEG)
+    return false;
   if (p.general) return rows || p.height * p.width <= MAX_AREA_LONG;
   return rows && (p.kernel >= K_SQUARE ||
                   (p.nets <= DEFAULT_N && p.pins_per_net <= DEFAULT_M));

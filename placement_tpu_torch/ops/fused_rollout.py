@@ -11,8 +11,9 @@ live here:
     interpreter) and ``chip_smoke.py`` holds the CUDA kernel to it.
   * ``ops/csrc/fused_rollout_warp.cu`` (the pin environments) and
     ``fused_rollout.cu`` (the reduced ones, and the C entry points) — the
-    hand-written CUDA kernels, all one warp per board on the row helpers of
-    ``fused_warp.cuh``, launched by ``FusedRollout`` on CUDA tensors.
+    hand-written CUDA kernels, one warp per board (the general square four
+    boards a warp) on the row helpers of ``fused_warp.cuh``, launched by
+    ``FusedRollout`` on CUDA tensors.
 
 ``make_fused_rollout`` returns a ``FusedRollout``: on CPU tensors it runs the
 plain version, on CUDA tensors it launches the kernel (or raises) and counts

@@ -95,6 +95,7 @@ inline float __uint_as_float(unsigned u) {
   memcpy(&f, &u, 4);
   return f;
 }
+inline int __float2int_rd(float x) { return (int)floorf(x); }
 
 namespace emu {
 

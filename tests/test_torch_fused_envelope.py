@@ -82,6 +82,8 @@ EDGES = {
         "min_component_w": 1, "max_component_w": 3, "min_num_components": 10,
         "max_num_components": 20}),
     "tall_square": ("square", {"height": 36, "width": 4}),
+    # its mirror: rows over 32 cells, a row two whole words
+    "wide_square": ("square", {"height": 4, "width": 36}),
     "wide_pin": ("rectangle_pin", {"height": 3, "width": 48}),
     # the Train page's most nets with the beam route: "both", width 2
     "web_nets10_both": ("rectangle_pin", {

@@ -16,6 +16,7 @@ a child process with its own time limit. Skipped where g++ is missing.
 
 import numpy as np
 import pytest
+import torch
 
 from placement_tpu_torch.ops import _build
 from placement_tpu_torch.ops import fused_rollout as torch_fused
@@ -230,6 +231,93 @@ def test_emulated_general_kernel_matches_plain_version(emulated_library,
     if params.has_pins:
         # some episodes were routed, not all penalties
         assert (rsum != dcnt * np.float32(torch_fused._penalty(params))).any()
+
+
+#: the general square kernel (four boards a warp on 8-lane segments, the
+#: plane updated by the placed square's reach): label -> overrides of the
+#: square config. 10 boards leave both a warp's segments and the CUDA block
+#: partial; logical block 3; two chained chunks of 40 steps (several
+#: episodes where n > 1; 1 x 40 at n = 1 fills its board: placed_all)
+SQUARE_CASES = {
+    "36x4_n2": {"height": 36, "width": 4, "component_n": 2},
+    "36x4_n4": {"height": 36, "width": 4, "component_n": 4},
+    "144x1_n1": {"height": 144, "width": 1, "component_n": 1},
+    "48x3_n3": {"height": 48, "width": 3, "component_n": 3},
+    "4x36_n2": {"height": 4, "width": 36, "component_n": 2},
+    "3x48_n3": {"height": 3, "width": 48, "component_n": 3},
+    "1x144_n1": {"height": 1, "width": 144, "component_n": 1},
+    "1x40_n1": {"height": 1, "width": 40, "component_n": 1},
+}
+SQUARE_BATCH, SQUARE_BLOCK, SQUARE_STEPS = 10, 3, 40
+
+
+def _square_chunks(emulated_library, params, leaves, seeds,
+                   steps=SQUARE_STEPS):
+    """The emulated kernel's chained chunks from ``leaves`` held to the
+    plain version's, leaf for leaf; returns the kernel's (leaves, done
+    counts) of each."""
+    got = emu.run_chunks(emulated_library, torch_fused._kernel_params(params),
+                         torch_fused.leaves_to_numpy(leaves), seeds,
+                         steps, SQUARE_BLOCK, CASE_TIMEOUT)
+    for seed, (new, rsum, dcnt) in zip(seeds, got):
+        leaves, want_r, want_d = torch_fused.rollout_chunk_reference(
+            params, leaves, seed, steps, SQUARE_BLOCK)
+        want = torch_fused.leaves_to_numpy(leaves)
+        for k in torch_fused._LEAVES:
+            np.testing.assert_array_equal(new[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(dcnt, want_d.numpy())
+        np.testing.assert_array_equal(rsum, want_r.numpy())
+    return [(new, d) for new, _, d in got]
+
+
+@pytest.mark.parametrize("case", sorted(SQUARE_CASES))
+def test_emulated_general_square_matches_plain_version(emulated_library,
+                                                       case):
+    params = load_env_params("square").replace(**SQUARE_CASES[case])
+    assert torch_fused.needs_general(params)
+    leaves = torch_fused.zero_leaves(params, SQUARE_BATCH, "cpu")
+    dcnt = [d for _, d in _square_chunks(emulated_library, params, leaves,
+                                         [11, 12])]
+    assert (dcnt[0] >= 1).all()           # every zero board regenerated
+    if params.component_n > 1 or case == "1x40_n1":
+        assert (dcnt[0] + dcnt[1] >= 2).any()   # and an episode ended
+
+
+def test_emulated_general_square_rebuilds_after_the_load(emulated_library):
+    """Leaves whose plane0 disagrees with the grid: half the rows filled
+    under the empty board's plane, and on half the boards a component under
+    the cursor of another size. As JAX's kernel, the first step samples the
+    loaded plane0, paints the loaded component and rebuilds the plane from
+    the grid; an update of plane0 by the placed square's reach would keep
+    the filled rows' anchors. One step, then two chunks on from it."""
+    params = load_env_params("square").replace(height=36, width=4,
+                                               component_n=2)
+    H, W, n = params.height, params.width, params.component_n
+    leaves = torch_fused.zero_leaves(params, SQUARE_BATCH, "cpu")
+    grid = torch.zeros(SQUARE_BATCH, H, W)
+    grid[:, : H // 2] = 1.0
+    plane = torch.zeros(H, W)
+    plane[: H - n + 1, : W - n + 1] = 1.0
+    leaves["grid"] = grid.reshape(SQUARE_BATCH, -1).contiguous()
+    leaves["plane0"] = plane.reshape(1, -1).repeat(SQUARE_BATCH, 1)
+    leaves["plane1"] = leaves["plane0"].clone()
+    leaves["cursor"][:] = 3
+    leaves["num_components"][:] = H * W
+    leaves["comp_h"][:] = n
+    leaves["comp_w"][:] = n
+    leaves["comp_h"][SQUARE_BATCH // 2:] = n + 1
+    (new, dcnt), = _square_chunks(emulated_library, params, leaves, [21],
+                                  steps=1)
+    half = SQUARE_BATCH // 2
+    plane = new["plane0"].reshape(SQUARE_BATCH, H, W)
+    # an n x n component: no step ended, and the plane holds the free
+    # anchors of the grid's lower rows alone
+    assert (dcnt[:half] == 0).all()
+    assert not plane[:half, : H // 2].any() and plane[:half].any()
+    # another size: the first step painted it, then the board ended
+    assert (dcnt[half:] == 1).all()
+    leaves = torch_fused.leaves_from_numpy(new, "cpu")
+    _square_chunks(emulated_library, params, leaves, [22, 23])
 
 
 @pytest.mark.parametrize("case", sorted(GENERAL_CASES))
