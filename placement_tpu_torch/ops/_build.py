@@ -21,6 +21,8 @@ import subprocess
 import time
 from typing import Tuple
 
+from placement_tpu_torch.utils import profiling
+
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
@@ -69,11 +71,18 @@ def build(csrc: "pathlib.Path | None" = None,
     """Compile the sources (``csrc``, by default the package's) unless this
     hash is built; returns the library path and the seconds spent compiling
     (0.0 when reused). The compilers' output (``-Xptxas=-v``: registers,
-    spills, stack frames) is kept beside the library as ``<name>.log``."""
+    spills, stack frames) is kept beside the library as ``<name>.log``. A
+    compile is the span ``fused_rollout.build``."""
     csrc = csrc or CSRC
     lib = library_path(csrc, build_dir)
     if lib.exists():
         return lib, 0.0
+    with profiling.span("fused_rollout.build"):
+        return _compile(csrc, lib)
+
+
+def _compile(csrc: pathlib.Path, lib: pathlib.Path
+             ) -> Tuple[pathlib.Path, float]:
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     nvcc = _nvcc()

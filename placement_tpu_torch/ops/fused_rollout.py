@@ -39,7 +39,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple, Union
+import time
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,6 +48,7 @@ import torch
 from placement_tpu_torch.env.types import EnvParams, Variant
 from placement_tpu_torch.ops import fused_routing
 from placement_tpu_torch.ops.fused_routing import _f64_rounded
+from placement_tpu_torch.utils import profiling
 
 F32 = torch.float32
 I32 = torch.int32
@@ -775,12 +777,30 @@ def _kernel_params(params: EnvParams) -> _KernelParams:
         int(needs_general(params)), stride, -(-(1 << 22) // stride))
 
 
+#: seconds the process's first ``kernel_library()`` took (the
+#: ``fused_rollout.library`` span's length, build included), None before it
+_library_s: Optional[float] = None
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, once per process;
-    checks that its compiled capacities are ``KERNEL_CAPACITY``."""
+    checks that its compiled capacities are ``KERNEL_CAPACITY``. The build
+    or load is the span ``fused_rollout.library``, an nvcc build inside it
+    ``fused_rollout.build``."""
+    global _library_s
     from placement_tpu_torch.ops import _build
-    return load_kernel_library(_build.build()[0])
+    t0 = time.perf_counter()
+    with profiling.span("fused_rollout.library"):
+        lib = load_kernel_library(_build.build()[0])
+    _library_s = time.perf_counter() - t0
+    return lib
+
+
+def library_seconds() -> Optional[float]:
+    """Seconds the kernel library's build or load took in this process,
+    whether spans are on or off; None before ``kernel_library()``."""
+    return _library_s
 
 
 def load_kernel_library(path) -> ctypes.CDLL:
@@ -844,15 +864,18 @@ class FusedRollout:
                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                              torch.Tensor]:
         """The chunk with per-board ``f32[B]`` reward sums and ``i32[B]``
-        done counts."""
-        self._check_leaves(leaves)
-        dev = leaves["grid"].device
-        if dev.type == "cpu":
-            return rollout_chunk_reference(self.params, leaves, seed,
-                                           self.num_steps, self.block)
-        if dev.type != "cuda":
-            raise ValueError(f"no fused rollout for device {dev}")
-        return self._launch(leaves, seed)
+        done counts. The call is the span ``fused_rollout.per_board``, its
+        leaf checks ``fused_rollout.check``."""
+        with profiling.span("fused_rollout.per_board"):
+            with profiling.span("fused_rollout.check"):
+                self._check_leaves(leaves)
+            dev = leaves["grid"].device
+            if dev.type == "cpu":
+                return rollout_chunk_reference(self.params, leaves, seed,
+                                               self.num_steps, self.block)
+            if dev.type != "cuda":
+                raise ValueError(f"no fused rollout for device {dev}")
+            return self._launch(leaves, seed)
 
     def __call__(self, leaves: Dict[str, torch.Tensor], seed: int
                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
@@ -879,20 +902,25 @@ class FusedRollout:
     def _launch(self, leaves: Dict[str, torch.Tensor], seed: int
                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                            torch.Tensor]:
+        """Spans: the outputs' allocation ``fused_rollout.alloc``; the
+        pointer structs, the device guard, the stream and the C call that
+        launches the kernel ``fused_rollout.launch``."""
         lib = kernel_library()
         dev = leaves["grid"].device
-        out = {n: torch.empty_like(leaves[n]) for n in _LEAVES}
-        rsum = torch.empty(self.batch, dtype=F32, device=dev)
-        dcnt = torch.empty(self.batch, dtype=I32, device=dev)
-        ins = _KernelLeaves(*[leaves[n].data_ptr() for n in _LEAVES])
-        outs = _KernelLeaves(*[out[n].data_ptr() for n in _LEAVES])
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.fused_rollout_launch(
-                ctypes.byref(self._kparams), ctypes.byref(ins),
-                ctypes.byref(outs), rsum.data_ptr(), dcnt.data_ptr(),
-                self.batch, self.num_steps, self.block,
-                int(seed) & _M32, stream)
+        with profiling.span("fused_rollout.alloc"):
+            out = {n: torch.empty_like(leaves[n]) for n in _LEAVES}
+            rsum = torch.empty(self.batch, dtype=F32, device=dev)
+            dcnt = torch.empty(self.batch, dtype=I32, device=dev)
+        with profiling.span("fused_rollout.launch"):
+            ins = _KernelLeaves(*[leaves[n].data_ptr() for n in _LEAVES])
+            outs = _KernelLeaves(*[out[n].data_ptr() for n in _LEAVES])
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = lib.fused_rollout_launch(
+                    ctypes.byref(self._kparams), ctypes.byref(ins),
+                    ctypes.byref(outs), rsum.data_ptr(), dcnt.data_ptr(),
+                    self.batch, self.num_steps, self.block,
+                    int(seed) & _M32, stream)
         if err != 0:
             raise RuntimeError(f"fused_rollout kernel launch failed: CUDA "
                                f"error {err}")

@@ -334,10 +334,9 @@ def test_kernel_build_is_keyed_on_sources():
     assert not any("fast" in f for f in _build.NVCC_FLAGS)
 
 
-def test_kernel_build_runs_one_nvcc_per_source(tmp_path, monkeypatch):
-    """Each .cu is compiled by its own nvcc (all started together), then
-    the objects are linked into the library; the compilers' output is
-    kept beside it and no object is left behind."""
+def stub_nvcc(tmp_path, monkeypatch) -> pathlib.Path:
+    """Point ``_build`` at an nvcc that logs its arguments to the returned
+    file and touches its ``-o`` output, building into ``tmp_path/out``."""
     calls = tmp_path / "calls"
     nvcc = tmp_path / "nvcc"
     nvcc.write_text('#!/bin/sh\necho "$@" >> ' + str(calls) + '\n'
@@ -348,6 +347,14 @@ def test_kernel_build_runs_one_nvcc_per_source(tmp_path, monkeypatch):
     nvcc.chmod(0o755)
     monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "out")
+    return calls
+
+
+def test_kernel_build_runs_one_nvcc_per_source(tmp_path, monkeypatch):
+    """Each .cu is compiled by its own nvcc (all started together), then
+    the objects are linked into the library; the compilers' output is
+    kept beside it and no object is left behind."""
+    calls = stub_nvcc(tmp_path, monkeypatch)
     lib, _ = _build.build()
     cus = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     lines = calls.read_text().splitlines()

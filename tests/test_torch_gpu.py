@@ -66,6 +66,31 @@ def test_cuda_wrapper_rejects_bad_leaves(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_chunk_records_the_wrapper_spans(cuda):
+    """A chunk on the card records its call, with the leaf checks, the
+    outputs' allocation and the launch inside it, one launch span a
+    counted launch."""
+    from placement_tpu_torch.utils import profiling
+
+    params = load_env_params("rectangle_pin")
+    fn = torch_fused.make_fused_rollout(params, 128, 5, device=cuda)
+    leaves = torch_fused.zero_leaves(params, 128, cuda)
+    torch_fused.kernel_library()
+    profiling.enable()
+    try:
+        fn.per_board(leaves, 1)
+        got = [(n, p) for n, _, _, p in profiling.spans()]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    torch.cuda.synchronize()
+    assert got == [("fused_rollout.per_board", -1),
+                   ("fused_rollout.check", 0), ("fused_rollout.alloc", 0),
+                   ("fused_rollout.launch", 0)]
+    assert fn.launches == 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name,overrides,block", [
     ("rectangle_pin", {"reward_type": "beam"}, 128),
     ("rectangle_pin", {"reward_type": "beam", "reward_beam_width": 4}, 128),

@@ -196,9 +196,20 @@ def test_metrics_logger_reads_tensors_and_prefixes_custom(tmp_path, caplog):
 
 
 def test_profiler_writes_a_trace(tmp_path):
-    with profiling.trace(str(tmp_path / "ctx")):
-        torch.ones(8).sum()
-    assert glob.glob(str(tmp_path / "ctx" / "trace_*.json"))
+    window = profiling.trace_iterations(str(tmp_path / "ctx"), 1, 1)
+    profiling.enable()
+    try:
+        window.maybe_start(1)
+        with profiling.span("fused_rollout.per_board"):
+            torch.ones(8).sum()
+        window.maybe_stop(1)
+    finally:
+        profiling.disable()
+        profiling.reset()
+    (ctx,) = glob.glob(str(tmp_path / "ctx" / "trace_*.json"))
+    with open(ctx) as f:
+        assert "fused_rollout.per_board" in {
+            e.get("name") for e in json.load(f)["traceEvents"]}
     prof = tmp_path / "iters"
     trainer = _trainer(tmp_path, "square", name="prof",
                        profile_dir=str(prof))
