@@ -268,13 +268,16 @@ SPLIT_EDGES = ("nets24_both", "ppn24_beam4", "ppn48_beam2",
 GENERAL_ROWS = {"centroid": "web_nets10", "beam": "ppn24_beam4",
                 "both": "nets24_both", "square": "tall_square",
                 "rect": "wide_rect"}
-#: the default instantiations as recorded before the general ones were
-#: added (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W): card ms per chunk
-#: by row, and ptxas -v's (registers, stack frame bytes, spill store bytes)
-#: by kernel
-BASELINE_MS = {"pin_centroid": 0.32659, "pin_beam": 0.52797,
-           "pin_both": 0.66411, "square": 0.06706, "rect": 0.10307,
-           "varpin_web": 0.39399}
+#: the default instantiations as recorded (PERF.md §6; NVIDIA H100 80GB
+#: HBM3, 700.00 W): card ms per chunk by row (the pin rows with their
+#: episode end on per-warp shared scratch, square and rect from before the
+#: general instantiations were added), and ptxas -v's (registers, stack
+#: frame bytes, spill store bytes) by kernel, which the scratch left as they
+#: were (it adds shared memory: 25,600 B a block for centroid and "both",
+#: 9,472 for beam, against 8,192)
+BASELINE_MS = {"pin_centroid": 0.24745, "pin_beam": 0.50872,
+           "pin_both": 0.56482, "square": 0.06706, "rect": 0.10307,
+           "varpin_web": 0.29060}
 BASELINE_PTXAS = {"centroid": (64, 40, 0), "beam": (64, 48, 4),
               "both": (64, 56, 12), "square": (40, 0, 0),
               "rect": (40, 0, 0)}

@@ -31,8 +31,9 @@
 //   * a board is a warp: lane x holds grid row x and the two legality-plane
 //     rows (MAX_H = 32), lane q holds pins q and q + 32 (MAX_P <= 64),
 //     lane c component c; cursor, component and pin counts are uniform.
-//     Only the two tables read at computed indices live in shared memory,
-//     a slice per warp: the per-net allocation table and the cell order;
+//     The tables read at computed indices live in shared memory, a slice
+//     per warp: the per-net allocation table, the cell order, and the
+//     scratch of the episode end (below);
 //   * the loops over rows, pins, components and nets run across the lanes
 //     (shuffles, ballots, warp sums, __match_any_sync), so the serial chain
 //     of a board-step is tens of warp operations, not thousands; the row
@@ -65,22 +66,23 @@
 // slots; a net's reductions a redux.sync each or a segment's shuffle tree;
 // coordinates up to 254). All three general ones hold 64 registers like
 // the default ones: their spills cost less than a second wave of boards.
-// Their centroid route (centroid_wl_int_general) and allocation
-// (allocate_net_general) take a fixed number of warp steps whatever the
-// nets: per-net sums and bin counts are shared-memory atomics of integers
-// (exact in any order), and the crossing pairs of the routed segments are
-// dealt evenly over the lanes from shared memory.
+// Both instantiations end an episode alike: the centroid route
+// (centroid_wl_int) and the allocation (allocate_net) take a fixed number
+// of warp steps whatever the nets, through a per-warp shared scratch:
+// per-net sums and bin counts are shared-memory atomics of integers (exact
+// in any order), the components' keys, spaces and bin edges are read back
+// into registers, and the crossing pairs of the routed segments are dealt
+// evenly over the lanes from shared memory.
 // Every f32 sum whose order the plain version fixes is still taken in that
 // order (the wirelength over pins, or over nets and path positions, the
-// allocation's weights (the general allocation: the integer sums they
-// equal), the softmax total and cumulative probabilities, the per-board
-// reward sum): lane 0's order, broadcast. Integer sums (and f32
-// sums of small integers, exact in any order) are warp reductions. Every
-// sort is a rank by counting over unique keys, which gives the stable
-// sort's order. The PRNG row and salt are those of the LOGICAL block,
-// whatever the launch geometry. Build with -fmad=false, IEEE division and
-// sqrt; the allocation's log, cos, exp and sqrt are taken in f64 and
-// rounded to f32, as in the plain version.
+// allocation's weights (as the integer sums they equal), the softmax total
+// and cumulative probabilities, the per-board reward sum): lane 0's order,
+// broadcast. Integer sums (and f32 sums of small integers, exact in any
+// order) are warp reductions. Every sort is a rank by counting over unique
+// keys, which gives the stable sort's order. The PRNG row and salt are
+// those of the LOGICAL block, whatever the launch geometry. Build with
+// -fmad=false, IEEE division and sqrt; the allocation's log, cos, exp and
+// sqrt are taken in f64 and rounded to f32, as in the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -133,130 +135,7 @@ __device__ __forceinline__ void planes_for(const FusedRolloutParams& p,
 
 // ---- centroid routing reward (fused_routing.centroid_wl_int) -------------
 
-// Centroid-route wirelength and crossing count of the board's pins (the
-// same on every lane).
-__device__ void centroid_wl_int(const FusedRolloutParams& p,
-                                const WarpBoard& b, int lane, float& wl_out,
-                                int& ints_out) {
-  const int N = p.nets, P = p.pins;
-  // a pin's net, or -1 where it is not routed
-  int net_on[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int q = lane + 32 * s, n = b.pnet[s];
-    net_on[s] = (q < P && q < b.npin && n >= 0 && n < N) ? n : -1;
-  }
-  // lane n: net n's pin count and coordinate sums (small integers: exact
-  // in f32 in any order), centroid, first pin
-  int cnt = 0, sxi = 0, syi = 0;
-  for (int n = 0; n < N; ++n) {
-    int c = 0, x = 0, y = 0;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      if (net_on[s] == n) {
-        ++c;
-        x += b.pax[s];
-        y += b.pay[s];
-      }
-    }
-    c = warp_sum(c);
-    x = warp_sum(x);
-    y = warp_sum(y);
-    if (lane == n) {
-      cnt = c;
-      sxi = x;
-      syi = y;
-    }
-  }
-  const float sx = (float)sxi, sy = (float)syi;
-  const float denom = (float)max(cnt, 1);
-  const float cx = sx / denom, cy = sy / denom;
-  const int start = warp_scan(cnt, lane, N) - cnt;
-  // lane n: the net's second pin (2-pin routes), pin start + 1
-  float x2 = 0.f, y2 = 0.f;
-  {
-    const int s2 = start + 1, src = s2 & 31;
-    const int n0 = __shfl_sync(FULL, net_on[0], src);
-    const int n1 = __shfl_sync(FULL, net_on[1], src);
-    const int ax0 = __shfl_sync(FULL, b.pax[0], src);
-    const int ax1 = __shfl_sync(FULL, b.pax[1], src);
-    const int ay0 = __shfl_sync(FULL, b.pay[0], src);
-    const int ay1 = __shfl_sync(FULL, b.pay[1], src);
-    const bool hi = s2 >= 32;
-    if (lane < N && s2 < 64 && (hi ? n1 : n0) == lane) {
-      x2 = (float)(hi ? ax1 : ax0);
-      y2 = (float)(hi ? ay1 : ay0);
-    }
-  }
-  // per-pin segments: integer-scaled endpoints for the exact predicate
-  float x1s[2], y1s[2], x2s[2], y2s[2], sc[2], term[2];
-  bool sv[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int q = lane + 32 * s, n = net_on[s], src = max(n, 0);
-    const int c_n = __shfl_sync(FULL, cnt, src);
-    const int st_n = __shfl_sync(FULL, start, src);
-    const float cx_n = __shfl_sync(FULL, cx, src);
-    const float cy_n = __shfl_sync(FULL, cy, src);
-    const float sx_n = __shfl_sync(FULL, sx, src);
-    const float sy_n = __shfl_sync(FULL, sy, src);
-    const float x2_n = __shfl_sync(FULL, x2, src);
-    const float y2_n = __shfl_sync(FULL, y2, src);
-    const float x = (float)b.pax[s], y = (float)b.pay[s];
-    float ex = 0.f, ey = 0.f, exs = 0.f, eys = 0.f, scv = 1.f;
-    bool valid = false;
-    if (n >= 0) {
-      const bool two = c_n == 2;
-      ex = two ? x2_n : cx_n;
-      ey = two ? y2_n : cy_n;
-      exs = two ? x2_n : sx_n;
-      eys = two ? y2_n : sy_n;
-      scv = two ? 1.f : (float)max(c_n, 1);
-      valid = !two || q - st_n == 0;
-    }
-    const float dx = x - ex, dy = y - ey;
-    term[s] = valid ? sqrtf(dx * dx + dy * dy) : 0.f;
-    x1s[s] = x * scv;
-    y1s[s] = y * scv;
-    x2s[s] = exs;
-    y2s[s] = eys;
-    sc[s] = scv;
-    sv[s] = valid;
-  }
-  // the wirelength in pin order (adding +0 for a pin without a term is
-  // exact: the sum is never -0)
-  float wl = 0.f;
-  for (int q = 0; q < P; ++q)
-    wl += __shfl_sync(FULL, q < 32 ? term[0] : term[1], q & 31);
-  // crossings: pin q broadcast, pins r > q on their own lanes
-  int ints = 0;
-  for (int q = 0; q + 1 < P; ++q) {
-    const bool hs = q >= 32;
-    const int src = q & 31;
-    const int sv_q = __shfl_sync(FULL, (int)(hs ? sv[1] : sv[0]), src);
-    if (!sv_q) continue;
-    const int net_q = __shfl_sync(FULL, hs ? net_on[1] : net_on[0], src);
-    const float ax1 = __shfl_sync(FULL, hs ? x1s[1] : x1s[0], src);
-    const float ay1 = __shfl_sync(FULL, hs ? y1s[1] : y1s[0], src);
-    const float ax2 = __shfl_sync(FULL, hs ? x2s[1] : x2s[0], src);
-    const float ay2 = __shfl_sync(FULL, hs ? y2s[1] : y2s[0], src);
-    const float s_q = __shfl_sync(FULL, hs ? sc[1] : sc[0], src);
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int r = lane + 32 * s;
-      if (r > q && sv[s] && net_on[s] != net_q)
-        ints += seg_intersect(ax1 * sc[s], ay1 * sc[s], ax2 * sc[s],
-                              ay2 * sc[s], x1s[s] * s_q, y1s[s] * s_q,
-                              x2s[s] * s_q, y2s[s] * s_q);
-    }
-  }
-  wl_out = wl;
-  ints_out = warp_sum(ints);
-}
-
-// ---- the general instantiation's centroid route ---------------------------
-
-// A warp's shared scratch of centroid_wl_int_general: per net its sums and
+// A warp's shared scratch of centroid_wl_int: per net its sums and
 // its segments' far end, then the routed segments in pin order.
 struct CentroidScratch {
   int count_x[MAX_N];              // pin count + x sum * 2^8
@@ -270,18 +149,19 @@ struct CentroidScratch {
 __shared__ CentroidScratch s_centroid[WARPS];
 static_assert(MAX_M < 256, "a net's pin count in count_x's low byte");
 
-// centroid_wl_int for up to MAX_N nets and MAX_P pins in a fixed number of
-// warp steps: a pin adds to its net's count and coordinate sums by two
-// shared-memory atomics (integers: exact in any order); lane n makes net
-// n's far end; each pin its segment and term, the routed ones packed in
+// Centroid-route wirelength and crossing count of the board's pins (the
+// same on every lane), for up to MAX_N nets and MAX_P pins in a fixed
+// number of warp steps: a pin adds to its net's count and coordinate sums
+// by two shared-memory atomics (integers: exact in any order); lane n makes
+// net n's far end; each pin its segment and term, the routed ones packed in
 // pin order; the wirelength is their f32 sum in pin order, and the
 // V(V - 1) / 2 pairs of the V routed segments are dealt evenly over the
 // lanes, both segments read from shared memory. The crossing predicate is
 // symmetric in its two segments (each orientation test and the
 // determinant's sign swap), so a pair's order within it does not matter.
-__device__ void centroid_wl_int_general(const FusedRolloutParams& p,
-                                        const WarpBoard& b, int lane,
-                                        float& wl_out, int& ints_out) {
+__device__ void centroid_wl_int(const FusedRolloutParams& p,
+                                const WarpBoard& b, int lane, float& wl_out,
+                                int& ints_out) {
   CentroidScratch& cs = s_centroid[threadIdx.x >> 5];
   const int N = p.nets, P = p.pins;
   // a pin's net, or -1 where it is not routed
@@ -1115,10 +995,7 @@ __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
                                                int* segs) {
   float wl = 0.f, c_wl = 0.f;
   int ints = 0, c_ints = 0;
-  if constexpr (K != K_BEAM && GENERAL)
-    centroid_wl_int_general(p, b, lane, c_wl, c_ints);
-  if constexpr (K != K_BEAM && !GENERAL)
-    centroid_wl_int(p, b, lane, c_wl, c_ints);
+  if constexpr (K != K_BEAM) centroid_wl_int(p, b, lane, c_wl, c_ints);
   if constexpr (K != K_CENTROID && GENERAL)
     beam_wl_int_general(p, b, lane, segs, wl, ints);
   if constexpr (K != K_CENTROID && !GENERAL)
@@ -1132,64 +1009,7 @@ __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
 
 // ---- in-kernel instance generator (generate) -----------------------------
 
-// One net's pin -> component allocation, drawing call `call`: writes the
-// component of each of the net's M ranks to comp_of[0..M) and, when the net
-// is open, updates `space` (lane c: component c's free cells). Rank j is on
-// lane j (the default instantiation: M <= 32).
-__device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
-                             uint32_t call, int m, int k0, bool open,
-                             int& space, int* comp_of, int lane) {
-  const int C = p.components, M = p.pins_per_net;
-  const bool cl = lane < C;
-  // components by free space, descending: the keys space*(C+1)+(C-1-i)
-  // are unique, so a component's position is the count of greater keys
-  const int key = space * (C + 1) + (C - 1 - lane);
-  int pos = 0;
-  for (int j = 0; j < C; ++j) pos += __shfl_sync(FULL, key, j) > key;
-  int sidx = 0;  // lane c: the component at position c
-  for (int i = 0; i < C; ++i)
-    if (__shfl_sync(FULL, pos, i) == lane) sidx = i;
-  const int got_space = __shfl_sync(FULL, space, sidx);
-  const int s_space = cl ? got_space : 0;
-  const int csum = warp_scan(s_space, lane, C);
-  const int not_enough = __popc(__ballot_sync(FULL, cl && csum < m));
-  const int k = max(k0, min(not_enough + 1, C));
-  // cumulative f32 weights in position order
-  float tot_w = 0.f, cw_cum = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const int sc = __shfl_sync(FULL, s_space, c);
-    tot_w += c < k ? (float)sc : 0.f;
-    if (lane == c) cw_cum = tot_w;
-  }
-  tot_w = fmaxf(tot_w, 1e-9f);
-  // lane j < m: rank j's uniform and its bin; bins counted by ballot
-  const float ut = rng.uniform(call, M, lane);
-  int bin = 0;
-  for (int c = 0; c < C - 1; ++c)
-    bin += ut > __shfl_sync(FULL, cw_cum, c) / tot_w;
-  int cnt = 0;
-  for (int c = 0; c < C; ++c) {
-    const int got = __popc(__ballot_sync(FULL, lane < m && bin == c));
-    if (lane == c) cnt = got;
-  }
-  cnt = min(cnt, s_space);
-  // in-order water-fill of the residue into the remaining space
-  const int resid = m - warp_sum(cnt);
-  const int free_c = s_space - cnt;
-  const int before = warp_scan(free_c, lane, C) - free_c;
-  cnt += min(max(resid - before, 0), free_c);
-  const int bound = warp_scan(cnt, lane, C);
-  int slot = 0;  // lane j < M: the position that takes rank j
-  for (int c = 0; c < C; ++c) slot += lane >= __shfl_sync(FULL, bound, c);
-  const int comp = __shfl_sync(FULL, sidx, min(slot, C - 1));
-  if (lane < M) comp_of[lane] = comp;
-  if (open) {
-    const int left = __shfl_sync(FULL, s_space - cnt, pos & 31);
-    if (cl) space = left;
-  }
-}
-
-// A warp's shared scratch of allocate_net_general: per component, and per
+// A warp's shared scratch of allocate_net: per component, and per
 // position in the order by free space, the values every lane reads back.
 struct AllocScratch {
   alignas(16) int key[MAX_C];     // component c: its sort key
@@ -1209,19 +1029,21 @@ __device__ __forceinline__ void load_c(const T* from, T (&to)[MAX_C]) {
   for (int c = 0; c < MAX_C; ++c) to[c] = from[c];
 }
 
-// allocate_net for nets of up to MAX_M ranks (the general instantiation):
-// rank j on lane j % 32, slot j / 32. The same draws and the same f32
-// arithmetic in fewer warp steps: the values of the C <= MAX_C components
-// (their keys, then by position their free space, bin edges and bins'
-// counts) go through shared memory, and every lane works out the sort, the
-// cumulative weights, the water-fill and the slots from them in registers.
-// The cumulative weights are integer prefix sums (small integers, exact in
-// f32 in any order); each bin's edge is one division on its own lane; the
-// bins are counted by shared-memory atomics.
-__device__ void allocate_net_general(const FusedRolloutParams& p,
-                                     const Rng& rng, uint32_t call, int m,
-                                     int k0, bool open, int& space,
-                                     int* comp_of, int lane) {
+// One net's pin -> component allocation, drawing call `call`: writes the
+// component of each of the net's M ranks to comp_of[0..M) and, when the net
+// is open, updates `space` (lane c: component c's free cells). Rank j is on
+// lane j % 32, slot j / 32; MAXM, the instantiation's most ranks a net,
+// leaves out slot 1 where it is 32 or fewer. The values of the C <= MAX_C
+// components (their keys, then by position their free space, bin edges and
+// bins' counts) go through shared memory, and every lane works out the
+// sort, the cumulative weights, the water-fill and the slots from them in
+// registers. The cumulative weights are integer prefix sums (small
+// integers, exact in f32 in any order); each bin's edge is one division on
+// its own lane; the bins are counted by shared-memory atomics.
+template <int MAXM>
+__device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
+                             uint32_t call, int m, int k0, bool open,
+                             int& space, int* comp_of, int lane) {
   AllocScratch& sh = s_alloc[threadIdx.x >> 5];
   const int C = p.components, M = p.pins_per_net;
   const bool cl = lane < C;
@@ -1270,7 +1092,7 @@ __device__ void allocate_net_general(const FusedRolloutParams& p,
   float edge[MAX_C];
   load_c(sh.edge, edge);
   // lane j: rank j's uniform and bin (wide: rank j + 32's too)
-  const bool wide = M > 32;
+  const bool wide = MAXM > 32 && M > 32;
   const float ut = rng.uniform(call, M, lane);
   int bin = 0;
 #pragma unroll
@@ -1430,12 +1252,9 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
   __syncwarp();  // the last episode's reads of the tables are done
   for (int n = 0; n < N; ++n) {  // draws call_base .. call_base+N-1
     const int m = __shfl_sync(FULL, net_count, n);
-    if constexpr (GENERAL)
-      allocate_net_general(p, rng, call_base + n, m, k0, n < nn, space,
-                           table + n * M, lane);
-    else
-      allocate_net(p, rng, call_base + n, m, k0, n < nn, space,
-                   table + n * M, lane);
+    allocate_net<GENERAL ? MAX_M : DEFAULT_M>(p, rng, call_base + n, m, k0,
+                                              n < nn, space, table + n * M,
+                                              lane);
   }
 
   // draw call_base+N: a random cell order per component, the stable
