@@ -75,6 +75,11 @@ Phases (any failure raises and the exit code is not 0):
      boards; the flagship's
      rows forced onto the general instantiation, leaves and time beside
      the default one's
+  5c. [wide]: the web app's largest boards (``web_max_pooled``'s 30x30
+     grid, 40 components, 10 nets of 2..10 pins) on the wide instantiation
+     of the centroid kernel: kernel == plain at 4096 boards on a 10-step
+     chunk from mid-run boards (board rewards within 5e-4), timed with its
+     bound, and the matrix tool's fused row on it
   6. main path 1, timed; the kernel's launch count must equal the calls
   7. main path 2, the matrix; launch counts set to 0 before and read after:
      every specialisation must have launched; the square and rect rows'
@@ -407,10 +412,10 @@ def phase_build():
     label, kernel, usage = "?", None, {}
     for line in (log.read_text().splitlines() if log.exists() else []):
         m = re.search(r"Compiling entry function '.*fused_rollout_"
-                      r"(warp|reduced)_kernelILi(\d)ELb([01])E", line)
+                      r"(warp|reduced)_kernelILi(\d)EL[bi]([012])E", line)
         if m:
             kernel = (fused_rollout.KERNELS[int(m.group(2))]
-                      + ("_general" if m.group(3) == "1" else ""))
+                      + ("", "_general", "_wide")[int(m.group(3))])
             label = f"{kernel} (fused_rollout_{m.group(1)}_kernel)"
         elif "registers" in line or "spill" in line or "stack frame" in line:
             print(f"[build] {label}: {line.strip()}")
@@ -445,6 +450,12 @@ def phase_build():
         got = (got.get("regs"), got.get("stack"), got.get("spill"))
         print(f"[build] {k}_general: (registers, stack frame B, spill stores "
               f"B) {got} (GENERAL_PTXAS_PR16: {was})")
+    got = usage.get("centroid_wide", {})
+    now = fused_rollout.boards_per_sm(_row("web_max_pooled")[0],
+                                      fused_rollout.TIERS.index("wide"))
+    print(f"[build] centroid_wide: {got.get('regs')} registers, "
+          f"{got.get('stack')} B stack frame, {got.get('spill')} B spill "
+          f"stores; {now} boards resident per SM, {now * sms} on {sms} SMs")
 
 
 def phase_hw_golden(kernel):
@@ -724,7 +735,7 @@ def phase_envelope():
         for general in (False, True):
             fn = fr.make_fused_rollout(params, BATCH, STEPS, block=block,
                                        device="cuda")
-            fn._kparams.general = int(general)
+            fn._kparams.tier = int(general)
             leaves = fr.zero_leaves(params, BATCH, "cuda")
             for seed in (1, 2):
                 leaves, _, _ = fn.per_board(leaves, seed)
@@ -738,6 +749,71 @@ def phase_envelope():
     return out
 
 
+#: [wide]: the steps of the chunk held to the plain version on the web
+#: app's largest boards (its generator, at 40 components, takes about a
+#: second a step at 4096 boards), after chunks that leave the boards
+#: mid-episode
+WIDE_CHECK_STEPS = 10
+
+
+def phase_wide():
+    """[wide] web_max (bench_matrix's ``web_max_pooled`` configuration, the
+    web app's largest boards) on the wide instantiation of the centroid
+    kernel, at ``BATCH`` boards and the benchmark cell's block: the kernel
+    against the plain version on a ``WIDE_CHECK_STEPS``-step chunk from
+    mid-run boards (leaves and done counts equal, board rewards within
+    5e-4); the kernel's ms per ``STEPS``-step chunk and its bound; then
+    ``bench_matrix.measure``'s row. Returns (err, ms, plain ms, bound ms,
+    bound_by, launches)."""
+    import torch
+    from placement_tpu_torch.ops import fused_rollout as fr
+    from placement_tpu_torch.tools import bench_matrix as bm
+    params = _row("web_max_pooled")[0]
+    _check(fr.kernel_tier(params) == "wide", "web_max: not the wide tier")
+    fn = fr.make_fused_rollout(params, BATCH, STEPS, block=BLOCK,
+                               device="cuda")
+    leaves = fr.zero_leaves(params, BATCH, "cuda")
+    for seed in (1, 2, 3):
+        leaves, _, _ = fn.per_board(leaves, seed)
+    short = fr.make_fused_rollout(params, BATCH, WIDE_CHECK_STEPS,
+                                  block=BLOCK, device="cuda")
+    got, got_r, got_d = short.per_board(leaves, 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_r, want_d = fr.rollout_chunk_reference(
+        params, leaves, 4, WIDE_CHECK_STEPS, BLOCK)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad = [k for k in fr._LEAVES if not torch.equal(got[k], want[k])]
+    err = float((got_r - want_r).abs().max())
+    print(f"[wide] web_max: {BATCH} boards, block {BLOCK}, "
+          f"{WIDE_CHECK_STEPS} steps from mid-run boards: leaves differing "
+          f"{bad}, done counts equal {torch.equal(got_d, want_d)}, max "
+          f"|board reward diff| {err!r}, {int(got_d.sum())} episodes; the "
+          f"plain version {plain_ms!r} ms", flush=True)
+    _check(not bad, f"web_max: kernel leaves differ from the plain "
+                    f"version: {bad}")
+    _check(torch.equal(got_d, want_d), "web_max: done counts differ")
+    # the centroid route's terms are added in another order
+    _check(err <= 5e-4, "web_max: board rewards differ")
+    leaves, _, dcnt = fn.per_board(got, 5)
+    ms = _kernel_ms(fn, leaves, 10, TIMED_CHUNKS)
+    bound_ms, bound_by, ops, nbytes = _chunk_bound(
+        params, BATCH, STEPS, int(dcnt.sum()), leaves)
+    row, _ = bm.measure("web_max", params, "web app maximum", BATCH,
+                        device="cuda", block=BLOCK)
+    print(f"[wide] web_max: kernel {ms!r} ms per {STEPS}-step chunk, "
+          f"{BATCH * STEPS / ms * 1e3!r} env-steps/s; bound {bound_ms!r} "
+          f"ms by {bound_by} ({ops!r} operations, {nbytes} bytes), share "
+          f"{bound_ms / ms!r}; bench_matrix.measure "
+          f"{row['steps_per_sec']!r} env-steps/s, {row['launches']} "
+          f"launches for {row['calls']} calls, {row['episodes']} episodes",
+          flush=True)
+    _check(row["launches"] == row["calls"], "web_max: matrix row missed "
+                                            "the kernel")
+    return err, ms, plain_ms, bound_ms, bound_by, row["launches"]
+
+
 def phase_batch_scaling(params, block):
     """The kernel's ms per chunk on ``params`` at several batches (from
     mid-run boards, after a warm-up): flat means latency-bound, in
@@ -749,8 +825,9 @@ def phase_batch_scaling(params, block):
         leaves, _, _ = fn.per_board(fr.zero_leaves(params, batch, "cuda"), 1)
         ms = [_kernel_ms(fn, leaves, 10 * i, TIMED_CHUNKS) for i in (1, 2)]
         print(f"[batch] {fn.kernel} kernel"
-              f"{' (general)' if fn.general else ''}, {batch} boards: ms "
-              f"per chunk {ms!r}, {batch * STEPS / min(ms) * 1e3!r} "
+              f"{'' if fn.tier == 'default' else f' ({fn.tier})'}, "
+              f"{batch} boards: ms per chunk {ms!r}, "
+              f"{batch * STEPS / min(ms) * 1e3!r} "
               "env-steps/s")
 
 
@@ -790,7 +867,8 @@ PHASE_ROWS = ("web_nets10", "nets24_both/centroid", "nets24_both",
               "wide_pin", "web_nets10_both", "ppn24_beam4", "ppn48_beam2",
               "wide_rect", "tall_square", "wide_square", "pin_centroid",
               "pin_beam", "pin_both", "rect", "square", "varpin_web",
-              "pin_centroid/general", "pin_beam/general", "rect/general")
+              "pin_centroid/general", "pin_beam/general", "rect/general",
+              "web_max")
 
 _PROF = r"""
 __shared__ unsigned long long s_phase_clocks[8][8];
@@ -822,7 +900,7 @@ _STAMPS = (
      _PROF.replace("PHASE_READER", "phase_clocks_pin")),
     ("fused_rollout_warp.cu", "  const int C = p.components, P = p.pins;\n"
      "  // sample a legal action over four planes", "  long long t_ = clock64();\n", ""),
-    ("fused_rollout_warp.cu", "  nth_cell<GENERAL>(p, even ? b.pl0 : b.pl1, "
+    ("fused_rollout_warp.cu", "  nth_cell<FLAT>(p, even ? b.pl0 : b.pl1, "
      "(int)tin, lane, xx, yy);\n", "", "  PHASE_ADD(0, t_);\n"),
     ("fused_rollout_warp.cu", "  const bool placed_all = b.cur >= b.numc;\n"
      "  planes_for", "  PHASE_ADD(1, t_);\n", ""),
@@ -838,11 +916,11 @@ _STAMPS = (
      "component", "  PHASE_ADD(5, tg_);\n", ""),
     ("fused_rollout_warp.cu", "  b.grid = 0u;\n  b.cur = 0;\n  planes_for",
      "  PHASE_ADD(4, tg_);\n", ""),
-    ("fused_rollout_warp.cu", "                      __shfl_sync(FULL, b.cw, "
-     "0), true, lane);\n}", "", ""),
+    ("fused_rollout_warp.cu", "                      __shfl_sync(FULL, "
+     "b.cw[0], 0), true, lane);\n}", "", ""),
     ("fused_rollout_warp.cu", _LOOP + "    rng.salt = step_salt(blk_salt, t);"
-     "\n    step<K, GENERAL>", "", ""),
-    ("fused_rollout_warp.cu", "  store_rows<GENERAL>(p, out.grid + b * A, "
+     "\n    if constexpr (TIER == T_WIDE)", "", ""),
+    ("fused_rollout_warp.cu", "  store_rows<FLAT>(p, out.grid + b * A, "
      "bd.grid, lane);\n", _FLUSH, ""),
     ("fused_rollout.cu", '#include "fused_warp.cuh"\n', "",
      _PROF.replace("PHASE_READER", "phase_clocks_reduced")),
@@ -927,6 +1005,8 @@ def _phase_row(name):
         params = _golden_params(json.loads(
             (FIXTURES / JAX_GOLDENS[base]).read_text()))
         block = VARPIN[base]
+    elif base == "web_max":      # the wide instantiation, at the cell's block
+        params, block = _row("web_max_pooled")[0], BLOCK
     else:
         params, block = _row(base)
     if variant in ("centroid", "beam", "both"):
@@ -939,7 +1019,7 @@ def _row_fn(params, block, general):
     fn = fr.make_fused_rollout(params, BATCH, STEPS, block=block,
                                device="cuda")
     if general is not None:
-        fn._kparams.general = int(general)
+        fn._kparams.tier = int(general)
     leaves = fr.zero_leaves(params, BATCH, "cuda")
     for seed in (1, 2):
         leaves, _, _ = fn.per_board(leaves, seed)
@@ -987,8 +1067,8 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
         names = SPLIT_PHASES[kind]
         cycles = {n: counts[i] / boards for i, n in enumerate(names) if n}
         loop = counts[7] / boards
-        print(f"[split] {label} ({fn.kernel} kernel"
-              f"{', general' if fn.general else ''}): ms per chunk "
+        print(f"[split] {label} ({fn.kernel} kernel, {fn.tier} "
+              f"instantiation): ms per chunk "
               f"{ms['plain']!r} (stamped {ms['stamped']!r}); episodes a board "
               f"and chunk {done / BATCH / TIMED_CHUNKS!r}; cycles a board and "
               f"chunk {loop!r}; shares "
@@ -1029,8 +1109,9 @@ def phase_turns(parent, rows=PHASE_ROWS, this=REPO):
                 ms[tag].append(_kernel_ms(fn, la, 10, TIMED_CHUNKS))
         best = {k: min(v) for k, v in ms.items()}
         print(f"[turns] {label} ({fb.kernel} kernel"
-              f"{', general' if fb.general else ''}): a chunk's leaves, "
-              f"board sums and done counts equal {same}; ms per chunk "
+              f"{'' if fb.tier == 'default' else ', ' + fb.tier}): a "
+              f"chunk's leaves, board sums and done counts equal {same}; "
+              f"ms per chunk "
               f"parent {ms['parent']!r}, this {ms['this']!r}: "
               f"{best['this']!r} against {best['parent']!r} "
               f"({best['this'] / best['parent']!r} x)", flush=True)
@@ -2972,6 +3053,7 @@ def main():
     t_env = time.perf_counter()
     envelope = phase_envelope()
     print(f"[envelope] {time.perf_counter() - t_env!r} s for the phase")
+    wide = phase_wide()
     hw = json.loads(HW_GOLDENS.read_text())
     launches_1, _ = phase_main_path(_row("pin_centroid")[0],
                                     hw["centroid"]["mean_reward"])
@@ -3087,6 +3169,24 @@ def main():
             "bound_by": bound_by,
             "library_ms": None,
         })
+    # the wide instantiation of the centroid kernel, on web_max
+    err, ms, plain_ms, bound_ms, bound_by, wide_launches = wide
+    entries.append({
+        "name": "fused_rollout_centroid_wide",
+        "route": "cuda",
+        "source": SOURCES["centroid"],
+        "replaces": f"placement_tpu/ops/fused_rollout.py:866 "
+                    f"({KERNELS['centroid'][-1]}; components > 8, pins > "
+                    f"48 or pins per component > 16, outside the JAX "
+                    f"kernel's envelope)",
+        "launches": wide_launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    })
     # the varying-pins branch on main path 3's config (the centroid
     # kernel); the error is the larger of both configs'
     err, ms, plain_ms, bound_ms, bound_by = results["varpin_web"]

@@ -15,11 +15,12 @@
 
 namespace {
 
-// The capacities of the general instantiation of each kernel (GENERAL =
-// true), which takes every configuration of the JAX kernel's envelope: a
-// board as a row-major bit string over the warp's lanes (fused_warp.cuh's
-// flat layout), so one side may pass 32 where the area stays within
-// MAX_AREA_LONG; nets and pins per net bounded by the pin table alone.
+// The capacities of the general instantiation of each kernel (T_GENERAL;
+// the reduced kernels' GENERAL = true), which takes every configuration of
+// the JAX kernel's envelope: a board as a row-major bit string over the
+// warp's lanes (fused_warp.cuh's flat layout), so one side may pass 32
+// where the area stays within MAX_AREA_LONG; nets and pins per net bounded
+// by the pin table alone.
 constexpr int MAX_H = 32;     // both sides <= 32 ...
 constexpr int MAX_W = 32;
 constexpr int MAX_AREA_LONG = 144;  // ... or the area <= 144
@@ -30,11 +31,24 @@ constexpr int MAX_P = 48;     // pin-table length
 constexpr int MAX_PPC = 16;   // pins (cells) per component
 constexpr int MAX_C_NOPIN = 64;  // components of SQUARE / RECT boards
 constexpr int MAX_BW = 4;     // beam width
-// The default instantiation (GENERAL = false), the flagship's and every
-// configuration's within these: a grid row per lane (sides <= 32), at most
-// DEFAULT_N nets of DEFAULT_M pins.
+// The default instantiation (T_DEFAULT; GENERAL = false), the flagship's
+// and every configuration's within these: a grid row per lane (sides <=
+// 32), at most DEFAULT_N nets of DEFAULT_M pins.
 constexpr int DEFAULT_N = 8;
 constexpr int DEFAULT_M = 16;
+// The wide instantiation of the centroid pin kernel, for boards of many
+// components (the web app's largest: 40 components, 100 pins, 5 x 5
+// footprints): the default one's grid row per lane, two components a lane,
+// four pin slots a lane, and the per-net tables of the general one.
+constexpr int WIDE_C = 64;    // components with pins
+constexpr int WIDE_N = 24;    // nets
+constexpr int WIDE_M = 48;    // pins per net
+constexpr int WIDE_P = 128;   // pin-table length
+constexpr int WIDE_PPC = 25;  // pins (cells) per component
+
+// The pin kernels' instantiations (FusedRolloutParams::tier):
+// fused_rollout_warp_kernel<K, TIER>.
+enum Tier { T_DEFAULT = 0, T_GENERAL = 1, T_WIDE = 2 };
 
 // The kernel's specialisations; KERNELS in fused_rollout.py names them.
 enum Kernel { K_CENTROID = 0, K_BEAM = 1, K_BOTH = 2, K_SQUARE = 3,
@@ -68,7 +82,7 @@ struct FusedRolloutParams {
   int32_t kernel;       // enum Kernel
   int32_t beam_width;   // K_BEAM, K_BOTH
   int32_t component_n;  // K_SQUARE's n x n footprint
-  int32_t general;      // run the general instantiation (needs_general)
+  int32_t tier;         // the pin kernels' instantiation (enum Tier)
   int32_t row_stride;   // the flat layout's bits a row (fused_warp.cuh)
   int32_t stride_recip; // ceil(2^22 / row_stride): t / row_stride
 };

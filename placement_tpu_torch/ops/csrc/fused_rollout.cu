@@ -671,9 +671,10 @@ void launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
             const FusedRolloutLeaves& out, float* rsum, int32_t* dcnt,
             int batch, int num_steps, int block, uint32_t seed,
             cudaStream_t stream) {
-  const int boards = K == K_SQUARE && p.general ? WARPS * SEG_BOARDS : WARPS;
+  const bool general = p.tier == T_GENERAL;
+  const int boards = K == K_SQUARE && general ? WARPS * SEG_BOARDS : WARPS;
   const int grid = (batch + boards - 1) / boards;
-  if (p.general)
+  if (general)
     fused_rollout_reduced_kernel<K, true><<<grid, BLOCK_THREADS, 0, stream>>>(
         p, in, out, rsum, dcnt, batch, num_steps, block, seed);
   else
@@ -681,14 +682,20 @@ void launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
         p, in, out, rsum, dcnt, batch, num_steps, block, seed);
 }
 
-// Whether the instantiation that p.general picks holds p's board and, for
+// Whether the instantiation that p.tier picks holds p's board and, for
 // the pin kernels, its nets. The general square holds a board of at most
-// SEG words.
+// SEG words; the wide tier is the centroid kernel's alone, and its tables
+// are held to its capacities here.
 bool fits(const FusedRolloutParams& p) {
   const bool rows = p.height <= MAX_H && p.width <= MAX_W;
-  if (p.general && p.kernel == K_SQUARE && p.height * p.row_stride > 32 * SEG)
+  if (p.tier == T_WIDE)
+    return p.kernel == K_CENTROID && rows && p.components <= WIDE_C &&
+           p.nets <= WIDE_N && p.pins_per_net <= WIDE_M &&
+           p.pins <= WIDE_P && p.pins_per_component <= WIDE_PPC;
+  const bool general = p.tier == T_GENERAL;
+  if (general && p.kernel == K_SQUARE && p.height * p.row_stride > 32 * SEG)
     return false;
-  if (p.general) return rows || p.height * p.width <= MAX_AREA_LONG;
+  if (general) return rows || p.height * p.width <= MAX_AREA_LONG;
   return rows && (p.kernel >= K_SQUARE ||
                   (p.nets <= DEFAULT_N && p.pins_per_net <= DEFAULT_M));
 }
@@ -698,8 +705,16 @@ bool fits(const FusedRolloutParams& p) {
 extern "C" {
 
 // The kernel's fixed capacity named `what`, or -1 (the host checks these
-// against KERNEL_CAPACITY in fused_rollout.py).
+// against KERNEL_CAPACITY in fused_rollout.py, and the wide tier's,
+// "wide.<name>", against WIDE_CAPACITY).
 int fused_rollout_capacity(const char* what) {
+  if (!strcmp(what, "wide.height")) return MAX_H;
+  if (!strcmp(what, "wide.width")) return MAX_W;
+  if (!strcmp(what, "wide.components")) return WIDE_C;
+  if (!strcmp(what, "wide.nets")) return WIDE_N;
+  if (!strcmp(what, "wide.pins_per_net")) return WIDE_M;
+  if (!strcmp(what, "wide.pins")) return WIDE_P;
+  if (!strcmp(what, "wide.pins_per_component")) return WIDE_PPC;
   if (!strcmp(what, "height")) return MAX_H;
   if (!strcmp(what, "width")) return MAX_W;
   if (!strcmp(what, "area")) return MAX_AREA_LONG;
@@ -714,7 +729,7 @@ int fused_rollout_capacity(const char* what) {
 }
 
 // Boards of the pin kernel's instantiation that `params` selects (the
-// general one where params->general) one SM holds at once, or -1.
+// instantiation of params->tier) one SM holds at once, or -1.
 int fused_rollout_boards_per_sm(const FusedRolloutParams* params) {
   return params->kernel <= K_BOTH ? fused_rollout_warp_boards_per_sm(*params)
                                   : -1;

@@ -55,7 +55,7 @@
 //     three instantiations: all of 4096 boards (31 warps per SM on 132 SMs)
 //     are resident at once. The beam's state spills a few words (8-16 B);
 //     that costs less than the occupancy that more registers would lose.
-// Each reward has two instantiations, fused_rollout_warp_kernel<K, GENERAL>.
+// Each reward has two instantiations, fused_rollout_warp_kernel<K, TIER>.
 // The default one (the flagship's, every config within DEFAULT_N nets of
 // DEFAULT_M pins on a board of sides <= 32) is the design above. The general
 // one takes the JAX kernel's whole envelope: the board as its bit string
@@ -73,6 +73,17 @@
 // in any order), the components' keys, spaces and bin edges are read back
 // into registers, and the crossing pairs of the routed segments are dealt
 // evenly over the lanes from shared memory.
+// The centroid reward has a third instantiation, the wide one (T_WIDE), for
+// boards of many components: the web app's largest, 40 components of up to
+// 5 x 5 cells with 100 pins on a 30 x 30 grid. It keeps the default one's
+// grid row a lane and takes the general one's per-net tables, and holds two
+// components a lane (WIDE_C = 64) and four pin slots a lane (WIDE_P = 128).
+// No table of C entries is held in registers: the allocation
+// (allocate_net_wide) keeps its per-component and per-position values in
+// shared memory and works on them as scans over the two component slots;
+// a component's 25 cells are ordered one component a warp pass. Its route
+// scratch and its generator's tables share one per-warp slice (WideScratch),
+// since an episode's route ends before the next instance is generated.
 // Every f32 sum whose order the plain version fixes is still taken in that
 // order (the wirelength over pins, or over nets and path positions, the
 // allocation's weights (as the integer sums they equal), the softmax total
@@ -96,31 +107,72 @@ constexpr int WARPS = 8;                 // boards per block
 constexpr int BLOCK_THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS = 4;            // 64 registers a thread
 
-static_assert(MAX_P <= 64 && MAX_M <= 64, "two pin slots per lane");
-static_assert(MAX_C <= 32 && MAX_N <= 32, "a lane per component and net");
-static_assert(MAX_PPC <= 16, "two components' cells per warp pass");
-
-// A board: lane x's grid and plane rows, lane c's component, lane q's pins
-// q (slot 0) and q + 32 (slot 1).
-struct WarpBoard {
-  uint32_t grid, pl0, pl1;
-  int32_t ch, cw;
-  int32_t prx[2], pry[2], pax[2], pay[2], pnet[2], pcomp[2];
-  int32_t cur, numc, npin;  // uniform
+// What an instantiation holds: its components, nets, pins a net, pins and
+// cells a component, and the lane slots its board takes for them.
+template <int TIER>
+struct Cap {
+  static constexpr bool WIDE = TIER == T_WIDE;
+  static constexpr int C = WIDE ? WIDE_C : MAX_C;
+  static constexpr int N = WIDE ? WIDE_N : MAX_N;
+  static constexpr int M = WIDE ? WIDE_M : MAX_M;
+  static constexpr int P = WIDE ? WIDE_P : MAX_P;
+  static constexpr int PPC = WIDE ? WIDE_PPC : MAX_PPC;
+  static constexpr int PIN_SLOTS = WIDE ? 4 : 2;
+  static constexpr int COMP_SLOTS = WIDE ? 2 : 1;
+  static_assert(P <= 32 * PIN_SLOTS && M <= 64, "pin slots per lane");
+  static_assert(C <= 32 * COMP_SLOTS && N <= 32,
+                "component slots per lane, a lane per net");
+  static_assert(WIDE ? PPC <= 32 : PPC <= 16,
+                "a component's cells in one warp pass (two at 16)");
 };
 
+// A board: lane x's grid and plane rows, component c on lane c % 32 (slot
+// c / 32), pin q on lane q % 32 (slot q / 32); the default and general
+// instantiations' boards are one type.
+template <int PIN_SLOTS, int COMP_SLOTS>
+struct WarpBoardT {
+  static constexpr int PS = PIN_SLOTS, CS = COMP_SLOTS;
+  uint32_t grid, pl0, pl1;
+  int32_t ch[CS], cw[CS];
+  int32_t prx[PS], pry[PS], pax[PS], pay[PS], pnet[PS], pcomp[PS];
+  int32_t cur, numc, npin;  // uniform
+};
+template <int TIER>
+using WarpBoard = WarpBoardT<Cap<TIER>::PIN_SLOTS, Cap<TIER>::COMP_SLOTS>;
+
 // t[min(i, C-1)] of a lane-held table, 0 for i < 0 (uniform i).
-__device__ __forceinline__ int comp_at(int v, int i, int C) {
+template <int CS>
+__device__ __forceinline__ int comp_at(const int (&v)[CS], int i, int C) {
   i = min(i, C - 1);
-  const int got = __shfl_sync(FULL, v, max(i, 0));
-  return i >= 0 ? got : 0;
+  if constexpr (CS == 1) {
+    const int got = __shfl_sync(FULL, v[0], max(i, 0));
+    return i >= 0 ? got : 0;
+  } else {
+    const int lo = __shfl_sync(FULL, v[0], i & 31);
+    const int hi = __shfl_sync(FULL, v[1], i & 31);
+    return i < 0 ? 0 : i < 32 ? lo : hi;
+  }
+}
+
+// Entry c of a lane-held table, c clamped to the table's slots (c may
+// differ from lane to lane).
+template <int CS>
+__device__ __forceinline__ int lane_pick(const int (&v)[CS], int c) {
+  if constexpr (CS == 1) {
+    return __shfl_sync(FULL, v[0], min(max(c, 0), 31));
+  } else {
+    c = min(max(c, 0), 32 * CS - 1);
+    const int lo = __shfl_sync(FULL, v[0], c & 31);
+    const int hi = __shfl_sync(FULL, v[1], c & 31);
+    return c < 32 ? lo : hi;
+  }
 }
 
 // ---- legality planes ------------------------------------------------------
 
-template <bool FLAT>
+template <bool FLAT, class Board>
 __device__ __forceinline__ void planes_for(const FusedRolloutParams& p,
-                                           WarpBoard& b, int ch_c, int cw_c,
+                                           Board& b, int ch_c, int cw_c,
                                            bool alive, int lane) {
   if (!alive) {
     b.pl0 = b.pl1 = 0u;
@@ -137,17 +189,56 @@ __device__ __forceinline__ void planes_for(const FusedRolloutParams& p,
 
 // A warp's shared scratch of centroid_wl_int: per net its sums and
 // its segments' far end, then the routed segments in pin order.
-struct CentroidScratch {
-  int count_x[MAX_N];              // pin count + x sum * 2^8
-  int sum_y[MAX_N];                // y sum
-  float4 end[MAX_N];               // far end (ex, ey), scaled (exs, eys)
-  int info[MAX_N];                 // count | first pin << 8
-  float4 seg[MAX_P];               // x1s, y1s, x2s, y2s (integer-scaled)
-  float2 tag[MAX_P];               // scale, net
-  float term[MAX_P];               // wirelength term
+template <int NETS, int PINS>
+struct CentroidScratchT {
+  int count_x[NETS];               // pin count + x sum * 2^8
+  int sum_y[NETS];                 // y sum
+  float4 end[NETS];                // far end (ex, ey), scaled (exs, eys)
+  int info[NETS];                  // count | first pin << 8
+  float4 seg[PINS];                // x1s, y1s, x2s, y2s (integer-scaled)
+  float2 tag[PINS];                // scale, net
+  float term[PINS];                // wirelength term
 };
+using CentroidScratch = CentroidScratchT<MAX_N, MAX_P>;
 __shared__ CentroidScratch s_centroid[WARPS];
-static_assert(MAX_M < 256, "a net's pin count in count_x's low byte");
+static_assert(MAX_M < 256 && WIDE_M < 256,
+              "a net's pin count in count_x's low byte");
+
+// The wide tier's allocate_net scratch: per component, per position in
+// the order by free space, and per rank, the values the lanes read back.
+struct WideAllocScratch {
+  alignas(16) int key[WIDE_C];     // component c: its sort key, -1 past C
+  alignas(16) float edge[WIDE_C];  // position c: its bin's upper edge
+  int space[WIDE_C];               // position c: free space, then left
+  int bins[WIDE_C];                // position c: the ranks its bin drew
+  int order[WIDE_C];               // position c: its component
+  int ends[WIDE_M + 1];            // rank j: the positions ending at j
+};
+
+// A warp's shared slice in the wide tier: the centroid route's scratch at
+// an episode's end, then (in the same bytes) the generator's tables.
+struct WideScratch {
+  union {
+    CentroidScratchT<WIDE_N, WIDE_P> route;
+    struct {
+      WideAllocScratch alloc;
+      int table[WIDE_P];                 // the per-net allocation table
+      uint8_t cells[WIDE_C * WIDE_PPC];  // each component's cell order
+      int seen[WIDE_C];                  // pins of each component so far
+    } gen;
+  };
+};
+__shared__ WideScratch s_wide[WARPS];
+static_assert(WIDE_PPC <= 256, "a cell index in a byte");
+
+// The route scratch of a board of PS pin slots, this warp's slice.
+template <int PS>
+__device__ __forceinline__ auto& centroid_scratch() {
+  if constexpr (PS > 2)
+    return s_wide[threadIdx.x >> 5].route;
+  else
+    return s_centroid[threadIdx.x >> 5];
+}
 
 // Centroid-route wirelength and crossing count of the board's pins (the
 // same on every lane), for up to MAX_N nets and MAX_P pins in a fixed
@@ -159,15 +250,16 @@ static_assert(MAX_M < 256, "a net's pin count in count_x's low byte");
 // lanes, both segments read from shared memory. The crossing predicate is
 // symmetric in its two segments (each orientation test and the
 // determinant's sign swap), so a pair's order within it does not matter.
-__device__ void centroid_wl_int(const FusedRolloutParams& p,
-                                const WarpBoard& b, int lane, float& wl_out,
-                                int& ints_out) {
-  CentroidScratch& cs = s_centroid[threadIdx.x >> 5];
+template <class Board>
+__device__ void centroid_wl_int(const FusedRolloutParams& p, const Board& b,
+                                int lane, float& wl_out, int& ints_out) {
+  constexpr int PS = Board::PS;
+  auto& cs = centroid_scratch<PS>();
   const int N = p.nets, P = p.pins;
   // a pin's net, or -1 where it is not routed
-  int net_on[2];
+  int net_on[PS];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < PS; ++s) {
     const int q = lane + 32 * s, n = b.pnet[s];
     net_on[s] = (q < P && q < b.npin && n >= 0 && n < N) ? n : -1;
   }
@@ -175,7 +267,7 @@ __device__ void centroid_wl_int(const FusedRolloutParams& p,
   if (lane < N) cs.count_x[lane] = cs.sum_y[lane] = 0;
   __syncwarp();
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < PS; ++s) {
     if (net_on[s] < 0) continue;
     atomicAdd(&cs.count_x[net_on[s]], 1 + 256 * b.pax[s]);
     atomicAdd(&cs.sum_y[net_on[s]], b.pay[s]);
@@ -206,6 +298,20 @@ __device__ void centroid_wl_int(const FusedRolloutParams& p,
       y2 = (float)(hi ? ay1 : ay0);
     }
   }
+  if constexpr (PS > 2) {  // pins 64 .. 127 on slots 2 and 3
+    const int s2 = start + 1, src = s2 & 31;
+    const int n2 = __shfl_sync(FULL, net_on[2], src);
+    const int n3 = __shfl_sync(FULL, net_on[3], src);
+    const int ax2 = __shfl_sync(FULL, b.pax[2], src);
+    const int ax3 = __shfl_sync(FULL, b.pax[3], src);
+    const int ay2 = __shfl_sync(FULL, b.pay[2], src);
+    const int ay3 = __shfl_sync(FULL, b.pay[3], src);
+    const bool hi = s2 >= 96;
+    if (lane < N && s2 >= 64 && s2 < 128 && (hi ? n3 : n2) == lane) {
+      x2 = (float)(hi ? ax3 : ax2);
+      y2 = (float)(hi ? ay3 : ay2);
+    }
+  }
   if (lane < N) {
     const bool two = cnt == 2;
     cs.end[lane] = make_float4(two ? x2 : cx, two ? y2 : cy, two ? x2 : sx,
@@ -218,7 +324,7 @@ __device__ void centroid_wl_int(const FusedRolloutParams& p,
   const uint32_t below = (1u << lane) - 1u;
   int before = 0;
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < PS; ++s) {
     const int q = lane + 32 * s, n = net_on[s];
     const float x = (float)b.pax[s], y = (float)b.pay[s];
     float4 e = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -340,9 +446,9 @@ __device__ __forceinline__ float seg_coord(int s, int i) {
 //     of cost BIG (dead) never has a live child, and while a net has pins
 //     left the best beam is live, so live beams rank first in every round
 //     and in the final pick whatever the dead ones' order.
-__device__ void beam_wl_int(const FusedRolloutParams& p, const WarpBoard& b,
-                            int lane, int* segs, float& wl_out,
-                            int& ints_out) {
+__device__ void beam_wl_int(const FusedRolloutParams& p,
+                            const WarpBoard<T_DEFAULT>& b, int lane,
+                            int* segs, float& wl_out, int& ints_out) {
   const int N = p.nets, M = p.pins_per_net, P = p.pins, bw = p.beam_width;
   const int G = 32 / M;                          // nets a turn
   const int g = lane / M, j = lane - g * M, base = g * M;
@@ -931,8 +1037,9 @@ __device__ float beam_nets(const FusedRolloutParams& p, const int (&pin)[2],
 // same search, tie rules and sums, every net at once (beam_nets), then the
 // crossings.
 __device__ void beam_wl_int_general(const FusedRolloutParams& p,
-                                    const WarpBoard& b, int lane, int* segs,
-                                    float& wl_out, int& ints_out) {
+                                    const WarpBoard<T_GENERAL>& b, int lane,
+                                    int* segs, float& wl_out,
+                                    int& ints_out) {
   const int N = p.nets, M = p.pins_per_net, P = p.pins;
   // a pin's net + 1 (0 where it is not routed) and its coordinates
   int pin[2];
@@ -989,16 +1096,18 @@ __device__ void beam_wl_int_general(const FusedRolloutParams& p,
 
 // The routed terminal reward of the kernel's reward type (reward_rows);
 // "both" takes the route with fewer crossings, a tie goes to beam.
-template <int K, bool GENERAL>
+template <int K, int TIER>
 __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
-                                               const WarpBoard& b, int lane,
-                                               int* segs) {
+                                               const WarpBoard<TIER>& b,
+                                               int lane, int* segs) {
+  static_assert(K == K_CENTROID || TIER != T_WIDE,
+                "the wide tier routes by centroid alone");
   float wl = 0.f, c_wl = 0.f;
   int ints = 0, c_ints = 0;
   if constexpr (K != K_BEAM) centroid_wl_int(p, b, lane, c_wl, c_ints);
-  if constexpr (K != K_CENTROID && GENERAL)
+  if constexpr (K != K_CENTROID && TIER == T_GENERAL)
     beam_wl_int_general(p, b, lane, segs, wl, ints);
-  if constexpr (K != K_CENTROID && !GENERAL)
+  if constexpr (K != K_CENTROID && TIER == T_DEFAULT)
     beam_wl_int(p, b, lane, segs, wl, ints);
   if (K == K_CENTROID || (K == K_BOTH && ints > c_ints)) {
     wl = c_wl;
@@ -1138,6 +1247,133 @@ __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
   if (open && cl) space = left;
 }
 
+// Inclusive prefix sums over the 64 entries of two lane slots (entry
+// lane + 32 s in v[s]).
+__device__ __forceinline__ void scan64(const int (&v)[2], int (&out)[2],
+                                       int lane) {
+  out[0] = warp_scan(v[0], lane, 32);
+  out[1] = warp_scan(v[1], lane, 32) + __shfl_sync(FULL, out[0], 31);
+}
+
+// allocate_net of the wide tier, for up to WIDE_C components: component c
+// and position c (in the order by free space) on lane c % 32, slot c / 32;
+// rank j on lane j % 32, slot j / 32 (slot 1 where M > 32). No table of C
+// entries is held in registers: a component's position is its count of
+// greater keys and a rank's bin its count of lower edges, both read from
+// shared memory four at a time; the running sums, the water-fill and
+// where each position's ranks end are scans over the two slots; a rank's
+// position is the count of positions whose ranks end at or before it, a
+// scan of those ends' histogram (counted by shared-memory atomics).
+__device__ void allocate_net_wide(const FusedRolloutParams& p, const Rng& rng,
+                                  uint32_t call, int m, int k0, bool open,
+                                  int (&space)[2], int* comp_of, int lane) {
+  WideAllocScratch& sh = s_wide[threadIdx.x >> 5].gen.alloc;
+  const int C = p.components, M = p.pins_per_net;
+  // components by free space, descending: the keys space*(C+1)+(C-1-i)
+  // are unique, so a component's position is the count of greater keys
+  int key[2], pos[2] = {0, 0};
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int c = lane + 32 * s;
+    key[s] = c < C ? space[s] * (C + 1) + (C - 1 - c) : -1;
+    sh.key[c] = key[s];
+    sh.bins[c] = 0;
+  }
+  for (int j = lane; j <= M; j += 32) sh.ends[j] = 0;
+  __syncwarp();
+  for (int c = 0; c < C; c += 4) {
+    const int4 k4 = *reinterpret_cast<const int4*>(&sh.key[c]);
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      pos[s] += (k4.x > key[s]) + (k4.y > key[s]) + (k4.z > key[s]) +
+                (k4.w > key[s]);
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (lane + 32 * s >= C) continue;
+    sh.order[pos[s]] = lane + 32 * s;
+    sh.space[pos[s]] = space[s];
+  }
+  __syncwarp();
+  // by position q: free space, its running sum; the first k positions
+  // share the ranks
+  int sp[2], run[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = lane + 32 * s;
+    sp[s] = q < C ? sh.space[q] : 0;
+  }
+  scan64(sp, run, lane);
+  const int not_enough =
+      __popc(__ballot_sync(FULL, lane < C && run[0] < m)) +
+      __popc(__ballot_sync(FULL, lane + 32 < C && run[1] < m));
+  const int k = max(k0, min(not_enough + 1, C));
+  // position q's cumulative weight (of positions 0..min(q, k - 1)) over the
+  // total, its bin's upper edge; 2 (above every uniform) past C - 1
+  const int tot_lo = __shfl_sync(FULL, run[0], (k - 1) & 31);
+  const int tot_hi = __shfl_sync(FULL, run[1], (k - 1) & 31);
+  const int tot = k - 1 < 32 ? tot_lo : tot_hi;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = lane + 32 * s, cw = q < k ? run[s] : tot;
+    sh.edge[q] = q < C - 1 ? (float)cw / fmaxf((float)tot, 1e-9f) : 2.0f;
+  }
+  __syncwarp();
+  // rank j: its uniform and bin, the count of edges below it
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (s == 1 && M <= 32) break;
+    const int j = lane + 32 * s;
+    const float ut = rng.uniform(call, M, j);
+    int bin = 0;
+    for (int c = 0; c < C - 1; c += 4) {
+      const float4 e = *reinterpret_cast<const float4*>(&sh.edge[c]);
+      bin += (ut > e.x) + (ut > e.y) + (ut > e.z) + (ut > e.w);
+    }
+    if (j < m) atomicAdd(&sh.bins[bin], 1);
+  }
+  __syncwarp();
+  // the positions' counts, then the in-order water-fill of the residue
+  // into the remaining space, and where each position's ranks end
+  int cnt[2], free_q[2], upto[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = lane + 32 * s;
+    cnt[s] = q < C ? min(sh.bins[q], sp[s]) : 0;
+    free_q[s] = sp[s] - cnt[s];
+  }
+  const int resid = m - warp_sum(cnt[0] + cnt[1]);
+  scan64(free_q, upto, lane);
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    cnt[s] += min(max(resid - (upto[s] - free_q[s]), 0), free_q[s]);
+  int ends[2];
+  scan64(cnt, ends, lane);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int q = lane + 32 * s;
+    if (q >= C) continue;
+    sh.space[q] = sp[s] - cnt[s];
+    if (ends[s] < M) atomicAdd(&sh.ends[ends[s]], 1);
+  }
+  __syncwarp();
+  // rank j's position: the count of positions whose ranks end at or
+  // before j
+  int at[2], slot[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int j = lane + 32 * s;
+    at[s] = j < M ? sh.ends[j] : 0;
+  }
+  scan64(at, slot, lane);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int j = lane + 32 * s;
+    if (j < M) comp_of[j] = sh.order[min(slot[s], C - 1)];
+    if (open && j < C) space[s] = sh.space[pos[s]];
+  }
+}
+
 // Lane n's extra pins when max_ppn > min_ppn (generate :407-450,
 // allocate_pins_to_nets:1067): weights softmax(N(1/nn, 1/(net_distribution
 // + 1))) from Box-Muller normals (draws 7 and 8), a multinomial of the
@@ -1212,22 +1448,38 @@ __device__ int extra_pins(const FusedRolloutParams& p, const Rng& rng,
 }
 
 // The generator (generate, :363-601) into board `b`; `table` and `cells`
-// are this warp's shared slices.
-template <bool GENERAL>
+// are this warp's shared slices (the wide tier's cells a byte each).
+template <int TIER, class Cell>
 __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
-                         WarpBoard& b, int* table, int* cells, int lane) {
+                         WarpBoard<TIER>& b, int* table, Cell* cells,
+                         int lane) {
+  constexpr bool GENERAL = TIER == T_GENERAL, WIDE = TIER == T_WIDE;
+  constexpr int PS = WarpBoard<TIER>::PS, CS = WarpBoard<TIER>::CS;
   const int C = p.components, N = p.nets, M = p.pins_per_net, P = p.pins;
   const int PPC = p.pins_per_component;
-  // draws 2, 3, 4: component heights, widths, count
+  // draws 2, 3, 4: component heights, widths, count (WIDE: component
+  // lane + 32 on slot 1)
   b.numc = randint(p.min_c, p.max_c, rng.uniform(4, 1, 0));
   int h = randint(p.min_h, p.max_h, rng.uniform(2, C, lane));
   int w = randint(p.min_w, p.max_w, rng.uniform(3, C, lane));
   if (lane >= b.numc || lane >= C) h = w = 0;
-  b.ch = h;
-  b.cw = w;
-  const int area = h * w;
-  const int total_area = warp_sum(area);
-  int space = area;
+  b.ch[0] = h;
+  b.cw[0] = w;
+  int area[CS], space[CS];
+  area[0] = h * w;
+  int lane_area = area[0];
+  if constexpr (WIDE) {
+    const int c = lane + 32;
+    int h1 = randint(p.min_h, p.max_h, rng.uniform(2, C, c));
+    int w1 = randint(p.min_w, p.max_w, rng.uniform(3, C, c));
+    if (c >= b.numc || c >= C) h1 = w1 = 0;
+    b.ch[1] = h1;
+    b.cw[1] = w1;
+    area[1] = space[1] = h1 * w1;
+    lane_area += area[1];
+  }
+  const int total_area = warp_sum(lane_area);
+  space[0] = area[0];
   // draw 5: net count; draw 6: total pin count, which feeds only the
   // max_ppn > min_ppn allocation (draws 7, 8, 9)
   int nn = randint(p.min_n, p.max_n, rng.uniform(5, 1, 0));
@@ -1239,7 +1491,8 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
         randint(p.ppn * nn, p.max_ppn * nn, rng.uniform(6, 1, 0)),
         total_area);
     net_count +=
-        extra_pins<GENERAL>(p, rng, nn, max(tp - p.ppn * nn, 0), lane);
+        extra_pins<TIER != T_DEFAULT>(p, rng, nn, max(tp - p.ppn * nn, 0),
+                                      lane);
     call_base = 10;
   }
   const int ncum = warp_scan(net_count, lane, N);
@@ -1252,40 +1505,65 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
   __syncwarp();  // the last episode's reads of the tables are done
   for (int n = 0; n < N; ++n) {  // draws call_base .. call_base+N-1
     const int m = __shfl_sync(FULL, net_count, n);
-    allocate_net<GENERAL ? MAX_M : DEFAULT_M>(p, rng, call_base + n, m, k0,
-                                              n < nn, space, table + n * M,
-                                              lane);
+    if constexpr (WIDE)
+      allocate_net_wide(p, rng, call_base + n, m, k0, n < nn, space,
+                        table + n * M, lane);
+    else
+      allocate_net<GENERAL ? MAX_M : DEFAULT_M>(p, rng, call_base + n, m,
+                                                k0, n < nn, space[0],
+                                                table + n * M, lane);
   }
 
   // draw call_base+N: a random cell order per component, the stable
   // ascending sort of uniform scores (unused cells 2.0) as ranks by
-  // (score, index); lanes 16h.. rank component c0 + h
-  for (int c0 = 0; c0 < C; c0 += 2) {
-    const int c = c0 + (lane >> 4), k = lane & 15;
-    const int ac = __shfl_sync(FULL, area, min(c, C - 1));
-    const bool mine = c < C && k < PPC;
-    const float v = mine && k < ac
-                        ? rng.uniform(call_base + N, C * PPC, c * PPC + k)
-                        : 2.0f;
-    int rank = 0;
-    for (int k2 = 0; k2 < PPC; ++k2) {
-      const float o = __shfl_sync(FULL, v, (lane & 16) | k2);
-      rank += o < v || (o == v && k2 < k);
+  // (score, index); lanes 16h.. rank component c0 + h (WIDE: lane k ranks
+  // cell k of each component in turn, among the component's cells alone:
+  // an unused cell ranks after them and is never read)
+  if constexpr (WIDE) {
+    for (int c = 0; c < C; ++c) {
+      const int ac = lane_pick(area, c);
+      const float v = lane < ac
+                          ? rng.uniform(call_base + N, C * PPC, c * PPC + lane)
+                          : 2.0f;
+      int rank = 0;
+      for (int k2 = 0; k2 < ac; ++k2) {
+        const float o = __shfl_sync(FULL, v, k2);
+        rank += o < v || (o == v && k2 < lane);
+      }
+      if (lane < ac) cells[c * PPC + rank] = (Cell)lane;
     }
-    if (mine) cells[c * PPC + rank] = k;
+  } else {
+    for (int c0 = 0; c0 < C; c0 += 2) {
+      const int c = c0 + (lane >> 4), k = lane & 15;
+      const int ac = __shfl_sync(FULL, area[0], min(c, C - 1));
+      const bool mine = c < C && k < PPC;
+      const float v = mine && k < ac
+                          ? rng.uniform(call_base + N, C * PPC, c * PPC + k)
+                          : 2.0f;
+      int rank = 0;
+      for (int k2 = 0; k2 < PPC; ++k2) {
+        const float o = __shfl_sync(FULL, v, (lane & 16) | k2);
+        rank += o < v || (o == v && k2 < k);
+      }
+      if (mine) cells[c * PPC + rank] = k;
+    }
   }
   __syncwarp();
 
   // the pins: net, rank in net, component, rank in component, cell
-  int net[2] = {0, 0};
+  int net[PS] = {};
   for (int n = 0; n < N; ++n) {
     const int bound = __shfl_sync(FULL, ncum, n);
     net[0] += lane >= bound;
     net[1] += lane + 32 >= bound;
+    if constexpr (PS > 2) {
+      net[2] += lane + 64 >= bound;
+      net[3] += lane + 96 >= bound;
+    }
   }
-  int comp[2];
+  int comp[PS];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < PS; ++s) {
     const int q = lane + 32 * s;
     const int nc = min(net[s], N - 1);
     const int prev = __shfl_sync(FULL, ncum, max(nc - 1, 0));
@@ -1296,24 +1574,40 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
   // rank among the earlier pins of the same component (a ccount[comp]++
   // in pin order)
   const uint32_t lower = (1u << lane) - 1u;
-  int crank[2];
-  crank[0] = __popc(__match_any_sync(FULL, comp[0]) & lower);
-  crank[1] = 0;
-  if (P > 32) {
-    int of0 = 0;  // lane c: slot-0 pins of component c
-    for (int c = 0; c < C; ++c) {
-      const int got = __popc(__ballot_sync(FULL, comp[0] == c));
-      if (lane == c) of0 = got;
+  int crank[PS];
+  if constexpr (WIDE) {
+    // the earlier slots' pins of each component, counted in shared memory
+    int* seen = s_wide[threadIdx.x >> 5].gen.seen;
+    seen[lane] = seen[lane + 32] = 0;
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < PS; ++s) {
+      const uint32_t same = __match_any_sync(FULL, comp[s]);
+      const bool ok = comp[s] >= 0 && comp[s] < C;
+      crank[s] = (ok ? seen[comp[s]] : 0) + __popc(same & lower);
+      __syncwarp();
+      if (ok && (same & lower) == 0) seen[comp[s]] += __popc(same);
+      __syncwarp();
     }
-    const int before = __shfl_sync(FULL, of0, min(max(comp[1], 0), 31));
-    crank[1] = before + __popc(__match_any_sync(FULL, comp[1]) & lower);
+  } else {
+    crank[0] = __popc(__match_any_sync(FULL, comp[0]) & lower);
+    crank[1] = 0;
+    if (P > 32) {
+      int of0 = 0;  // lane c: slot-0 pins of component c
+      for (int c = 0; c < C; ++c) {
+        const int got = __popc(__ballot_sync(FULL, comp[0] == c));
+        if (lane == c) of0 = got;
+      }
+      const int before = __shfl_sync(FULL, of0, min(max(comp[1], 0), 31));
+      crank[1] = before + __popc(__match_any_sync(FULL, comp[1]) & lower);
+    }
   }
   const int wlo = max(p.min_w, 1);
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < PS; ++s) {
     const int q = lane + 32 * s, cp = comp[s];
     const int r = (cp >= 0 && cp < C) ? crank[s] : 0;
-    const int wp = __shfl_sync(FULL, b.cw, min(max(cp, 0), 31));
+    const int wp = lane_pick(b.cw, cp);
     int rx = 0, ry = 0;
     if (q < P) {
       const int cell = cells[max(cp, 0) * PPC + min(max(r, 0), PPC - 1)];
@@ -1331,16 +1625,17 @@ __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
   }
   b.grid = 0u;
   b.cur = 0;
-  planes_for<GENERAL>(p, b, __shfl_sync(FULL, b.ch, 0),
-                      __shfl_sync(FULL, b.cw, 0), true, lane);
+  planes_for<GENERAL>(p, b, __shfl_sync(FULL, b.ch[0], 0),
+                      __shfl_sync(FULL, b.cw[0], 0), true, lane);
 }
 
 // ---- one step (body) -----------------------------------------------------
 
-template <int K, bool GENERAL>
+template <int K, int TIER, class Cell>
 __device__ void step(const FusedRolloutParams& p, const Rng& rng,
-                     WarpBoard& b, float& rsum, int& dcnt, int* table,
-                     int* cells, int lane) {
+                     WarpBoard<TIER>& b, float& rsum, int& dcnt, int* table,
+                     Cell* cells, int lane) {
+  constexpr bool FLAT = TIER == T_GENERAL;
   const int C = p.components, P = p.pins;
   // sample a legal action over four planes (2 and 3 copy 0 and 1)
   const int c0 = plane_count(b.pl0), c1 = plane_count(b.pl1);
@@ -1358,16 +1653,16 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
                                        : pre3);
   const bool even = osel % 2 == 0;
   int xx, yy;
-  nth_cell<GENERAL>(p, even ? b.pl0 : b.pl1, (int)tin, lane, xx, yy);
+  nth_cell<FLAT>(p, even ? b.pl0 : b.pl1, (int)tin, lane, xx, yy);
   const bool alive = total > 0.0f;
 
   const int chc = comp_at(b.ch, b.cur, C), cwc = comp_at(b.cw, b.cur, C);
   if (alive) {
-    paint<GENERAL>(p, b.grid, xx, yy, even ? chc : cwc, even ? cwc : chc,
-                   lane);
+    paint<FLAT>(p, b.grid, xx, yy, even ? chc : cwc, even ? cwc : chc,
+                lane);
     // pin rotation (Component.place_component:156-204)
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < WarpBoard<TIER>::PS; ++s) {
       if (lane + 32 * s >= P || b.pcomp[s] != b.cur) continue;
       const int r0 = b.prx[s], r1 = b.pry[s];
       const int nrx = osel == 0 ? r0 : osel == 1 ? r1
@@ -1382,31 +1677,34 @@ __device__ void step(const FusedRolloutParams& p, const Rng& rng,
     ++b.cur;
   }
   const bool placed_all = b.cur >= b.numc;
-  planes_for<GENERAL>(p, b, comp_at(b.ch, b.cur, C),
-                      comp_at(b.cw, b.cur, C), !placed_all, lane);
+  planes_for<FLAT>(p, b, comp_at(b.ch, b.cur, C), comp_at(b.cw, b.cur, C),
+                   !placed_all, lane);
   const int nt = plane_count(b.pl0) + plane_count(b.pl1);
   const bool done = placed_all || nt == 0 || !alive;
   if (!done) return;
   // routed reward on the post-placement tables, else the penalty
   const float reward =
-      (placed_all && alive) ? routed_reward<K, GENERAL>(p, b, lane, table)
+      (placed_all && alive) ? routed_reward<K, TIER>(p, b, lane, table)
                             : p.penalty;
   rsum = rsum + reward;
   ++dcnt;
-  generate<GENERAL>(p, rng, b, table, cells, lane);
+  generate<TIER>(p, rng, b, table, cells, lane);
 }
 
 // ---- the kernel ------------------------------------------------------------
 
-template <int K, bool GENERAL>
+template <int K, int TIER>
 __global__ void __launch_bounds__(BLOCK_THREADS, MIN_BLOCKS)
 fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
                           FusedRolloutLeaves out, float* rsum_out,
                           int32_t* dcnt_out, int batch, int num_steps,
                           int block, uint32_t seed) {
+  constexpr bool FLAT = TIER == T_GENERAL;
+  constexpr int PS = WarpBoard<TIER>::PS, CS = WarpBoard<TIER>::CS;
   // the per-net allocation table, N x M entries (N * M is the pin table's
-  // length), which the beam route reuses for its segments
-  __shared__ int s_table[WARPS][GENERAL ? MAX_P : DEFAULT_N * DEFAULT_M];
+  // length), which the beam route reuses for its segments (the wide tier's,
+  // and its cell order, are in its slice s_wide)
+  __shared__ int s_table[WARPS][FLAT ? MAX_P : DEFAULT_N * DEFAULT_M];
   __shared__ int s_cells[WARPS][MAX_C * MAX_PPC];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bi = blockIdx.x * WARPS + warp;
@@ -1415,17 +1713,22 @@ fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   const int P = p.pins;
   const int64_t b = bi;
 
-  WarpBoard bd;
-  bd.grid = load_rows<GENERAL>(p, in.grid + b * A, lane);
-  bd.pl0 = load_rows<GENERAL>(p, in.plane0 + b * A, lane);
-  bd.pl1 = load_rows<GENERAL>(p, in.plane1 + b * A, lane);
-  bd.ch = lane < C ? in.comp_h[b * C + lane] : 0;
-  bd.cw = lane < C ? in.comp_w[b * C + lane] : 0;
+  WarpBoard<TIER> bd;
+  bd.grid = load_rows<FLAT>(p, in.grid + b * A, lane);
+  bd.pl0 = load_rows<FLAT>(p, in.plane0 + b * A, lane);
+  bd.pl1 = load_rows<FLAT>(p, in.plane1 + b * A, lane);
+  bd.ch[0] = lane < C ? in.comp_h[b * C + lane] : 0;
+  bd.cw[0] = lane < C ? in.comp_w[b * C + lane] : 0;
+  if constexpr (CS > 1) {  // component lane + 32
+    const int c = lane + 32;
+    bd.ch[1] = c < C ? in.comp_h[b * C + c] : 0;
+    bd.cw[1] = c < C ? in.comp_w[b * C + c] : 0;
+  }
   bd.cur = in.cursor[b];
   bd.numc = in.num_components[b];
   bd.npin = in.num_pins[b];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < PS; ++s) {
     const int q = lane + 32 * s;
     const bool ok = q < P;
     const int64_t a = b * P + q;
@@ -1444,19 +1747,29 @@ fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   int dcnt = 0;
   for (int t = 0; t < num_steps; ++t) {
     rng.salt = step_salt(blk_salt, t);
-    step<K, GENERAL>(p, rng, bd, rsum, dcnt, s_table[warp], s_cells[warp],
-                     lane);
+    if constexpr (TIER == T_WIDE)
+      step<K, TIER>(p, rng, bd, rsum, dcnt, s_wide[warp].gen.table,
+                    s_wide[warp].gen.cells, lane);
+    else
+      step<K, TIER>(p, rng, bd, rsum, dcnt, s_table[warp], s_cells[warp],
+                    lane);
   }
 
-  store_rows<GENERAL>(p, out.grid + b * A, bd.grid, lane);
-  store_rows<GENERAL>(p, out.plane0 + b * A, bd.pl0, lane);
-  store_rows<GENERAL>(p, out.plane1 + b * A, bd.pl1, lane);
+  store_rows<FLAT>(p, out.grid + b * A, bd.grid, lane);
+  store_rows<FLAT>(p, out.plane0 + b * A, bd.pl0, lane);
+  store_rows<FLAT>(p, out.plane1 + b * A, bd.pl1, lane);
   if (lane < C) {
-    out.comp_h[b * C + lane] = bd.ch;
-    out.comp_w[b * C + lane] = bd.cw;
+    out.comp_h[b * C + lane] = bd.ch[0];
+    out.comp_w[b * C + lane] = bd.cw[0];
+  }
+  if constexpr (CS > 1) {
+    if (lane + 32 < C) {
+      out.comp_h[b * C + lane + 32] = bd.ch[1];
+      out.comp_w[b * C + lane + 32] = bd.cw[1];
+    }
   }
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < PS; ++s) {
     const int q = lane + 32 * s;
     if (q >= P) continue;
     const int64_t a = b * P + q;
@@ -1482,26 +1795,40 @@ int launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
            int batch, int num_steps, int block, uint32_t seed,
            cudaStream_t stream) {
   const int grid = (batch + WARPS - 1) / WARPS;
-  if (p.general)
-    fused_rollout_warp_kernel<K, true><<<grid, BLOCK_THREADS, 0, stream>>>(
+  if (p.tier == T_WIDE) {  // the centroid kernel's alone
+    if constexpr (K != K_CENTROID) return (int)cudaErrorInvalidValue;
+    else
+      fused_rollout_warp_kernel<K, T_WIDE><<<grid, BLOCK_THREADS, 0,
+                                             stream>>>(
+          p, in, out, rsum, dcnt, batch, num_steps, block, seed);
+  } else if (p.tier == T_GENERAL) {
+    fused_rollout_warp_kernel<K, T_GENERAL><<<grid, BLOCK_THREADS, 0,
+                                              stream>>>(
         p, in, out, rsum, dcnt, batch, num_steps, block, seed);
-  else
-    fused_rollout_warp_kernel<K, false><<<grid, BLOCK_THREADS, 0, stream>>>(
+  } else {
+    fused_rollout_warp_kernel<K, T_DEFAULT><<<grid, BLOCK_THREADS, 0,
+                                              stream>>>(
         p, in, out, rsum, dcnt, batch, num_steps, block, seed);
+  }
   return (int)cudaGetLastError();
 }
 
-template <int K>
-int boards_per_sm(bool general) {
+template <int K, int TIER>
+int occupancy() {
   int blocks = 0;
-  const cudaError_t err =
-      general ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &blocks, fused_rollout_warp_kernel<K, true>,
-                    BLOCK_THREADS, 0)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &blocks, fused_rollout_warp_kernel<K, false>,
-                    BLOCK_THREADS, 0);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fused_rollout_warp_kernel<K, TIER>, BLOCK_THREADS, 0);
   return err == cudaSuccess ? blocks * WARPS : -1;
+}
+
+template <int K>
+int boards_per_sm(int tier) {
+  if (tier == T_WIDE) {
+    if constexpr (K == K_CENTROID) return occupancy<K, T_WIDE>();
+    else return -1;
+  }
+  return tier == T_GENERAL ? occupancy<K, T_GENERAL>()
+                           : occupancy<K, T_DEFAULT>();
 }
 
 }  // namespace
@@ -1509,11 +1836,11 @@ int boards_per_sm(bool general) {
 int fused_rollout_warp_boards_per_sm(const FusedRolloutParams& p) {
   switch (p.kernel) {
     case K_CENTROID:
-      return boards_per_sm<K_CENTROID>(p.general);
+      return boards_per_sm<K_CENTROID>(p.tier);
     case K_BEAM:
-      return boards_per_sm<K_BEAM>(p.general);
+      return boards_per_sm<K_BEAM>(p.tier);
     case K_BOTH:
-      return boards_per_sm<K_BOTH>(p.general);
+      return boards_per_sm<K_BOTH>(p.tier);
     default:
       return -1;
   }

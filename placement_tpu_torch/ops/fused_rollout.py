@@ -32,7 +32,11 @@ generator); the SQUARE and RECT reduced kernels (+1 per placement, no pin
 tables). Each kernel has a default instantiation (the flagship's sizes)
 and a general one (``needs_general``: more than 8 nets or 16 pins per net,
 or a side over 32), which together take the JAX kernel's whole envelope
-and boards of up to 32 x 32 (``KERNEL_CAPACITY``).
+and boards of up to 32 x 32 (``KERNEL_CAPACITY``). The centroid kernel has
+a third, wide one (``needs_wide``: more components, pins or cells a
+component than the general one holds, on sides of up to 32), which takes
+the web app's largest boards (``WIDE_CAPACITY``); ``kernel_tier`` names the
+instantiation a configuration runs.
 """
 
 from __future__ import annotations
@@ -86,6 +90,23 @@ KERNEL_CAPACITY = {
 #: a grid row per lane and the flagship-sized pin tables. A config past
 #: these runs the general instantiation (``needs_general``).
 DEFAULT_CAPACITY = {"height": 32, "width": 32, "nets": 8, "pins_per_net": 16}
+#: What the wide instantiation of the centroid kernel holds (``WIDE_*`` of
+#: ``csrc/fused_common.cuh``; the wrapper checks the library reports the
+#: same, as ``wide.<name>``): the default one's grid row per lane, two
+#: components and four pins a lane, the general one's nets. A centroid pin
+#: config within these that the general instantiation cannot hold runs it
+#: (``needs_wide``).
+WIDE_CAPACITY = {
+    "height": 32,
+    "width": 32,
+    "components": 64,
+    "nets": 24,
+    "pins_per_net": 48,
+    "pins": 128,
+    "pins_per_component": 25,
+}
+#: The pin kernels' instantiations, in the order of the C enum ``Tier``.
+TIERS = ("default", "general", "wide")
 
 #: The kernel's specialisations, in the order of the C enum ``Kernel``.
 KERNELS = ("centroid", "beam", "both", "square", "rect")
@@ -673,6 +694,27 @@ def leaves_to_numpy(leaves: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 # What the port covers
 # ---------------------------------------------------------------------------
 
+def _pin_sizes(params: EnvParams) -> Dict[str, int]:
+    return {"components": params.max_components,
+            "nets": params.max_num_nets,
+            "pins_per_net": params.max_num_pins_per_net,
+            "pins": params.max_pins,
+            "pins_per_component": params.max_num_pins_per_component}
+
+
+def _wide_candidate(params: EnvParams) -> bool:
+    """A centroid pin config whose board fits a grid row per lane: the
+    wide instantiation's kind."""
+    return (params.has_pins and params.reward_type == "centroid"
+            and params.height <= WIDE_CAPACITY["height"]
+            and params.width <= WIDE_CAPACITY["width"])
+
+
+def _over(sizes: Dict[str, int], capacity: Dict[str, int]) -> "list[str]":
+    return [f"{k}={v} > {capacity[k]}" for k, v in sizes.items()
+            if v > capacity[k]]
+
+
 def envelope_report(params: EnvParams) -> "tuple[bool, list]":
     """Check ``params`` against the kernel's fixed capacities
     (``KERNEL_CAPACITY``), split as the JAX ``envelope_report`` (:100-121)
@@ -680,8 +722,18 @@ def envelope_report(params: EnvParams) -> "tuple[bool, list]":
     for the beam and "both" rewards), SQUARE / RECT against the board and
     ``components_nopin`` only. A board with one side over 32 is held to the
     area, and breaks that side's limit and the area's where it is over; one
-    with both sides over 32 breaks both sides'. Returns ``(ok, reasons)``,
-    one reason per violated limit."""
+    with both sides over 32 breaks both sides'. A centroid pin config on
+    sides of up to 32 that those capacities refuse is held to the wide
+    instantiation's (``WIDE_CAPACITY``) instead, and the reasons are its.
+    Returns ``(ok, reasons)``, one reason per violated limit."""
+    reasons = _general_reasons(params)
+    if reasons and _wide_candidate(params):
+        reasons = _over(_pin_sizes(params), WIDE_CAPACITY)
+    return not reasons, reasons
+
+
+def _general_reasons(params: EnvParams) -> "list[str]":
+    """The limits of ``KERNEL_CAPACITY`` that ``params`` breaks."""
     sizes = {}
     if params.area > KERNEL_CAPACITY["area"]:
         sizes = {"height": params.height, "width": params.width}
@@ -689,20 +741,12 @@ def envelope_report(params: EnvParams) -> "tuple[bool, list]":
         if len(over) == 1:
             sizes["area"] = params.area
     if params.has_pins:
-        sizes.update({
-            "components": params.max_components,
-            "nets": params.max_num_nets,
-            "pins_per_net": params.max_num_pins_per_net,
-            "pins": params.max_pins,
-            "pins_per_component": params.max_num_pins_per_component,
-        })
+        sizes.update(_pin_sizes(params))
         if params.reward_type in ("beam", "both"):
             sizes["beam_width"] = int(params.reward_beam_width)
     else:
         sizes["components_nopin"] = params.max_components
-    reasons = [f"{k}={v} > {KERNEL_CAPACITY[k]}" for k, v in sizes.items()
-               if v > KERNEL_CAPACITY[k]]
-    return not reasons, reasons
+    return _over(sizes, KERNEL_CAPACITY)
 
 
 def supports(params: EnvParams) -> bool:
@@ -710,15 +754,32 @@ def supports(params: EnvParams) -> bool:
     return envelope_report(params)[0]
 
 
+def needs_wide(params: EnvParams) -> bool:
+    """Whether ``params`` runs the wide instantiation of the centroid
+    kernel: a centroid pin config on sides of up to 32 with more
+    components, pins or cells a component than the general one holds."""
+    return _wide_candidate(params) and bool(_general_reasons(params))
+
+
 def needs_general(params: EnvParams) -> bool:
     """Whether ``params`` runs the general instantiation of its kernel (a
     side over 32, or more nets or pins per net than the default one
-    holds)."""
+    holds), and not the wide one."""
+    if needs_wide(params):
+        return False
     sizes = {"height": params.height, "width": params.width}
     if params.has_pins:
         sizes.update(nets=params.max_num_nets,
                      pins_per_net=params.max_num_pins_per_net)
     return any(v > DEFAULT_CAPACITY[k] for k, v in sizes.items())
+
+
+def kernel_tier(params: EnvParams) -> str:
+    """The instantiation of its kernel that ``params`` runs (``TIERS``):
+    picked once, when a ``FusedRollout`` is made."""
+    if needs_wide(params):
+        return "wide"
+    return "general" if needs_general(params) else "default"
 
 
 # ---------------------------------------------------------------------------
@@ -736,7 +797,7 @@ class _KernelParams(ctypes.Structure):
             "lam_w", "lam_i", "wl_norm", "int_norm", "penalty",
             "net_div")] + [
         (n, ctypes.c_int32) for n in (
-            "kernel", "beam_width", "component_n", "general",
+            "kernel", "beam_width", "component_n", "tier",
             "row_stride", "stride_recip")]
 
 
@@ -774,7 +835,7 @@ def _kernel_params(params: EnvParams) -> _KernelParams:
         float(params.intersections_normalizer), _penalty(params),
         params.net_distribution + 1.0, KERNELS.index(kernel_name(params)),
         int(params.reward_beam_width), params.component_n,
-        int(needs_general(params)), stride, -(-(1 << 22) // stride))
+        TIERS.index(kernel_tier(params)), stride, -(-(1 << 22) // stride))
 
 
 #: seconds the process's first ``kernel_library()`` took (the
@@ -785,8 +846,9 @@ _library_s: Optional[float] = None
 @functools.lru_cache(maxsize=None)
 def kernel_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, once per process;
-    checks that its compiled capacities are ``KERNEL_CAPACITY``. The build
-    or load is the span ``fused_rollout.library``, an nvcc build inside it
+    checks that its compiled capacities are ``KERNEL_CAPACITY`` and
+    ``WIDE_CAPACITY``. The build or load is the span
+    ``fused_rollout.library``, an nvcc build inside it
     ``fused_rollout.build``."""
     global _library_s
     from placement_tpu_torch.ops import _build
@@ -805,7 +867,8 @@ def library_seconds() -> Optional[float]:
 
 def load_kernel_library(path) -> ctypes.CDLL:
     """Load a built kernel library and declare its C entry points; checks
-    that its compiled capacities are ``KERNEL_CAPACITY``."""
+    that its compiled capacities are ``KERNEL_CAPACITY`` and
+    ``WIDE_CAPACITY``."""
     lib = ctypes.CDLL(str(path))
     lib.fused_rollout_launch.restype = ctypes.c_int
     lib.fused_rollout_launch.argtypes = [
@@ -818,18 +881,21 @@ def load_kernel_library(path) -> ctypes.CDLL:
     lib.fused_rollout_boards_per_sm.restype = ctypes.c_int
     lib.fused_rollout_boards_per_sm.argtypes = [
         ctypes.POINTER(_KernelParams)]
-    got = {k: lib.fused_rollout_capacity(k.encode()) for k in KERNEL_CAPACITY}
-    if got != KERNEL_CAPACITY:
-        raise RuntimeError(f"kernel capacities {got} != {KERNEL_CAPACITY}")
+    for prefix, want in (("", KERNEL_CAPACITY), ("wide.", WIDE_CAPACITY)):
+        got = {k: lib.fused_rollout_capacity(f"{prefix}{k}".encode())
+               for k in want}
+        if got != want:
+            raise RuntimeError(f"kernel capacities {got} != {want}")
     return lib
 
 
-def boards_per_sm(params: EnvParams, general: bool) -> int:
+def boards_per_sm(params: EnvParams, tier: int) -> int:
     """How many boards one SM of the card holds at once in the pin kernel
-    that runs ``params``, in its general instantiation or its default one
-    (the CUDA runtime's occupancy of its block, 8 boards a block)."""
+    that runs ``params``, in its instantiation ``tier`` (an index of
+    ``TIERS``; False and True pick the default and general ones): the CUDA
+    runtime's occupancy of its block, 8 boards a block."""
     kparams = _kernel_params(params)
-    kparams.general = int(general)
+    kparams.tier = int(tier)
     got = kernel_library().fused_rollout_boards_per_sm(ctypes.byref(kparams))
     if got < 0:
         raise RuntimeError(f"no occupancy for the {kernel_name(params)} "
@@ -842,7 +908,8 @@ class FusedRollout:
 
     On leaves that lie on the CPU it runs ``rollout_chunk_reference``; on
     CUDA leaves it launches the CUDA kernel specialised for ``params``
-    (``kernel``; its general instantiation where ``general``), or raises.
+    (``kernel``; in its instantiation ``tier``, general where
+    ``general``), or raises.
     ``launches`` counts kernel launches and nothing else. ``seed`` is a
     host int that must differ between calls.
     """
@@ -856,7 +923,8 @@ class FusedRollout:
         self.device = torch.device(device)
         self.widths = leaf_widths(params)
         self.kernel = kernel_name(params)
-        self.general = needs_general(params)
+        self.tier = kernel_tier(params)
+        self.general = self.tier == "general"
         self.launches = 0
         self._kparams = _kernel_params(params)
 

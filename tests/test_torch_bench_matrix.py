@@ -87,15 +87,35 @@ def test_fused_row_runs_on_cpu_tensors(name, configs, monkeypatch):
 
 
 def test_web_max_row_raises_naming_the_pooled_engine(configs, monkeypatch):
-    """The fused measure refuses the row outside the kernel's envelope,
-    naming the pooled engine; ``main`` runs it there (on the card: here it
-    raises without one)."""
+    """The fused measure refuses a configuration outside the kernels'
+    envelope, naming the pooled engine: the web app's maximum under the
+    beam reward (the wide instantiation is the centroid kernel's alone).
+    The ``web_max_pooled`` row stays the pooled engine's: ``main`` runs it
+    there (on the card: here it raises without one)."""
     params, anchor = configs["web_max_pooled"]
+    assert "web_max_pooled" not in bench_matrix.FUSED_ROWS
     with pytest.raises(ValueError, match="pooled engine"):
-        bench_matrix.measure("web_max_pooled", params, anchor, 16, "cpu")
+        bench_matrix.measure("web_max_pooled",
+                             params.replace(reward_type="beam"), anchor, 16,
+                             "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_matrix.main(["--configs", "web_max_pooled"])
+
+
+def test_web_max_runs_on_the_fused_engine(configs, monkeypatch):
+    """The web app's maximum under the centroid reward is inside the
+    envelope (the centroid kernel's wide instantiation): the fused measure
+    runs it, here on the plain version."""
+    monkeypatch.setattr(bench_matrix, "MAX_CALLS", 2)
+    params, anchor = configs["web_max_pooled"]
+    row, leaves = bench_matrix.measure("web_max", params, anchor, 8, "cpu",
+                                       inner=5)
+    assert row["engine"] == "fused_plain" and row["kernel"] == "centroid"
+    assert row["calls"] == 4 and math.isfinite(row["steps_per_sec"])
+    # the zero boards were regenerated as web_max instances, mid-episode
+    assert (leaves["num_components"] == 40).all()
+    assert (leaves["num_pins"] >= 20).all() and (leaves["cursor"] > 0).all()
 
 
 def test_web_max_row_runs_on_the_pooled_engine(configs, monkeypatch):

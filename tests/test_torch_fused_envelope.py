@@ -11,7 +11,9 @@ over the warp's lanes, so one side may pass 32 where the area stays within
 
   * the sweep: wherever JAX's ``envelope_report(params, block=8)`` accepts a
     configuration of a grid over its static limits, the port's ``supports``
-    does too; both refuse the web app's maximum and the over-limit cases;
+    does too; both refuse the over-limit cases; JAX refuses the web app's
+    maximum, which the port takes on the centroid kernel's wide
+    instantiation (and refuses under the beam and "both" rewards);
   * the edge configurations (``EDGES``): the port's plain version against
     the JAX kernel under the Pallas TPU interpreter, 16 all-done zero
     boards, logical block 8, two chained chunks, through recorded fixtures
@@ -226,26 +228,38 @@ def test_port_fuses_every_config_jax_fuses(config, reward):
                         f"are refused, e.g. {misses[:3]}")
 
 
-#: the web app's maximum sliders, refused by both packages
+#: the web app's maximum sliders: JAX refuses them, the port takes them
+#: on the wide instantiation of the centroid kernel and refuses them under
+#: the beam and "both" rewards
 WEB_MAX = {"height": 30, "width": 30,
            "min_component_h": 1, "max_component_h": 5,
            "min_component_w": 1, "max_component_w": 5,
            "min_num_components": 10, "max_num_components": 40,
            "min_num_nets": 2, "max_num_nets": 10,
            "min_num_pins_per_net": 2, "max_num_pins_per_net": 10}
+#: past the general instantiation's pin tables, within the wide one's
+_NINE_COMPONENTS = {"max_num_components": 9, "min_num_components": 9}
+_PPC20 = {"min_component_h": 2, "max_component_h": 5, "min_component_w": 2,
+          "max_component_w": 4}
+#: 40 components of 2..5 x 2..5 on a 32 x 32 board (room for 129 pins)
+_MANY = {"height": 32, "width": 32, "min_component_h": 2,
+         "max_component_h": 5, "min_component_w": 2, "max_component_w": 5,
+         "min_num_components": 40, "max_num_components": 40}
 
 
 @pytest.mark.parametrize("config,overrides,limit", [
-    ("rectangle_pin", WEB_MAX, "pins=100 > 48"),
+    # the beam and "both" rewards have no wide instantiation: a pin config
+    # past the general one's tables is refused under its named limit
+    ("rectangle_pin", {**WEB_MAX, "reward_type": "beam"}, "pins=100 > 48"),
     ("rectangle_pin", {"height": 10, "width": 33}, "area=330 > 144"),
     ("rectangle_pin", {"height": 5, "width": 40}, "area=200 > 144"),
-    ("rectangle_pin", {"max_num_components": 9, "min_num_components": 9},
+    ("rectangle_pin", {**_NINE_COMPONENTS, "reward_type": "both"},
      "components=9 > 8"),
     ("rectangle_pin", {"min_num_nets": 2, "max_num_nets": 25,
                        "min_num_pins_per_net": 2,
-                       "max_num_pins_per_net": 2}, "pins=50 > 48"),
-    ("rectangle_pin", {"min_component_h": 2, "max_component_h": 5,
-                       "min_component_w": 2, "max_component_w": 4},
+                       "max_num_pins_per_net": 2, "reward_type": "beam"},
+     "pins=50 > 48"),
+    ("rectangle_pin", {**_PPC20, "reward_type": "beam"},
      "pins_per_component=20 > 16"),
     ("rectangle_pin", {"reward_type": "beam", "reward_beam_width": 5},
      "beam_width=5 > 4"),
@@ -254,6 +268,20 @@ WEB_MAX = {"height": 30, "width": 30,
                    "max_component_h": 1, "min_component_w": 1,
                    "max_component_w": 1}, "components_nopin=65 > 64"),
     ("square", {"height": 3, "width": 49}, "area=147 > 144"),
+    # the centroid reward's wide instantiation, at its own limits
+    ("rectangle_pin", {"height": 32, "width": 32, "min_component_h": 1,
+                       "max_component_h": 2, "min_component_w": 1,
+                       "max_component_w": 2, "min_num_components": 65,
+                       "max_num_components": 65}, "components=65 > 64"),
+    ("rectangle_pin", {**_MANY, "min_num_nets": 3, "max_num_nets": 3,
+                       "min_num_pins_per_net": 43,
+                       "max_num_pins_per_net": 43}, "pins=129 > 128"),
+    ("rectangle_pin", {"height": 32, "width": 32, "min_component_h": 2,
+                       "max_component_h": 6, "min_component_w": 2,
+                       "max_component_w": 6}, "pins_per_component=36 > 25"),
+    ("rectangle_pin", {**_MANY, "min_num_nets": 2, "max_num_nets": 25,
+                       "min_num_pins_per_net": 2,
+                       "max_num_pins_per_net": 2}, "nets=25 > 24"),
 ])
 def test_both_refuse_over_limit_configs(config, overrides, limit):
     j, t = _params(config, overrides)
@@ -262,6 +290,28 @@ def test_both_refuse_over_limit_configs(config, overrides, limit):
     assert not ok and limit in reasons, reasons
     with pytest.raises(ValueError, match="envelope"):
         torch_fused.make_fused_rollout(t, 8, 5, device="cpu")
+
+
+@pytest.mark.parametrize("config,overrides", [
+    ("rectangle_pin", WEB_MAX),
+    ("rectangle_spatial_pin", WEB_MAX),
+    ("rectangle_pin", _NINE_COMPONENTS),
+    ("rectangle_pin", _PPC20),
+    ("rectangle_pin", {"min_num_nets": 2, "max_num_nets": 24,
+                       "min_num_pins_per_net": 2, "max_num_pins_per_net": 2,
+                       **_MANY}),
+], ids=["web_max", "web_max_spatial", "components9", "ppc20", "pins48_40c"])
+def test_jax_refuses_what_the_wide_tier_takes(config, overrides):
+    """Centroid pin configs past the JAX kernel's envelope (and the general
+    instantiation's tables) on sides of up to 32: the port takes them on
+    the wide instantiation."""
+    j, t = _params(config, {**overrides, "reward_type": "centroid"})
+    assert not jax_fused.envelope_report(j, block=JAX_BLOCK)[0]
+    assert torch_fused.envelope_report(t) == (True, [])
+    assert torch_fused.kernel_tier(t) == "wide"
+    assert torch_fused.needs_wide(t) and not torch_fused.needs_general(t)
+    fn = torch_fused.make_fused_rollout(t, 8, 5, device="cpu")
+    assert fn.tier == "wide" and not fn.general and fn._kparams.tier == 2
 
 
 @pytest.mark.parametrize("name", sorted(EDGES))

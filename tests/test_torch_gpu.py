@@ -352,6 +352,62 @@ def test_cuda_reduced_kernels_pass_pin_leaves_through(cuda):
     assert int(got["pin_net"].min()) == 7 and int(got["num_pins"].min()) == 3
 
 
+#: the web app's largest boards (bench_matrix's web_max_pooled row): 30 x 30,
+#: 40 components of 2..5 x 2..5, 10 nets of 2..10 pins, spatial variant
+WEB_MAX = dict(height=30, width=30, min_component_h=2, max_component_h=5,
+               min_component_w=2, max_component_w=5, min_num_components=40,
+               max_num_components=40, min_num_nets=10, max_num_nets=10,
+               min_num_pins_per_net=2, max_num_pins_per_net=10)
+
+
+@pytest.mark.gpu
+def test_cuda_wide_kernel_web_max_at_4096_boards(cuda):
+    """The wide instantiation of the centroid kernel on the web app's
+    largest boards at 4096 boards, logical block 256: after three chunks
+    that leave the boards mid-episode, a 10-step chunk (about a quarter of
+    the boards end an episode) against the plain version: leaves and done
+    counts equal, board rewards within 5e-4."""
+    params = load_env_params("rectangle_spatial_pin").replace(**WEB_MAX)
+    assert torch_fused.kernel_tier(params) == "wide"
+    fn = torch_fused.make_fused_rollout(params, 4096, 50, block=256,
+                                        device=cuda)
+    leaves = torch_fused.zero_leaves(params, 4096, cuda)
+    for seed in (1, 2, 3):
+        leaves, _, _ = fn.per_board(leaves, seed)
+    short = torch_fused.make_fused_rollout(params, 4096, 10, block=256,
+                                           device=cuda)
+    got, got_r, got_d = short.per_board(leaves, 4)
+    want, want_r, want_d = torch_fused.rollout_chunk_reference(
+        params, leaves, 4, 10, 256)
+    torch.cuda.synchronize()
+    for k in torch_fused._LEAVES:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got_d, want_d) and int(got_d.sum()) > 256
+    torch.testing.assert_close(got_r, want_r, rtol=0, atol=5e-4)
+    assert (fn.launches, short.launches) == (3, 1)
+
+
+@pytest.mark.gpu
+def test_cuda_wide_kernel_holds_many_boards_and_refuses_past_its_tables(
+        cuda):
+    """The wide instantiation keeps all 4096 boards resident at once on
+    the card, and its limits are refused before any launch: 65 components
+    with pins, or the beam reward past the general tables."""
+    params = load_env_params("rectangle_spatial_pin").replace(**WEB_MAX)
+    wide = torch_fused.TIERS.index("wide")
+    assert torch_fused.boards_per_sm(params, wide) * \
+        torch.cuda.get_device_properties(0).multi_processor_count >= 4096
+    over = params.replace(min_num_components=65, max_num_components=65,
+                          height=32, width=32, min_component_h=1,
+                          max_component_h=2, min_component_w=1,
+                          max_component_w=2)
+    with pytest.raises(ValueError, match="components=65 > 64"):
+        torch_fused.make_fused_rollout(over, 128, 5, device=cuda)
+    with pytest.raises(ValueError, match="pins=100 > 48"):
+        torch_fused.make_fused_rollout(params.replace(reward_type="beam"),
+                                       128, 5, device=cuda)
+
+
 @pytest.mark.gpu
 def test_cuda_library_has_only_warp_kernels(cuda):
     """The library holds the pin kernels' centroid, beam and "both"
