@@ -855,10 +855,13 @@ def phase_reward_split(label, params, block):
 
 #: a board-step's phases in the instrumented copy of the kernel sources:
 #: the pin kernels' and the reduced kernels' names for the counter slots
-#: (slot 7 is the whole loop over the chunk's steps)
+#: (slot 7 is the whole loop over the chunk's steps; "crossings", the beam
+#: route's crossing count, is a part of "route"). Slots 9-11 count the
+#: crossing counts that run (boards of two nets or more), their routed
+#: segments V and the pair passes dealt a lane, ceil(V (V - 1) / 64).
 SPLIT_PHASES = {
     "pin": ("sample", "paint and pins", "planes", "route",
-            "generator (not allocate_net)", "allocate_net"),
+            "generator (not allocate_net)", "allocate_net", "crossings"),
     "reduced": ("sample (nth_cell)", "paint", "planes", None, "generator"),
 }
 #: [envelope]'s edges (and the default rows) that phase_split and
@@ -868,17 +871,19 @@ PHASE_ROWS = ("web_nets10", "nets24_both/centroid", "nets24_both",
               "wide_rect", "tall_square", "wide_square", "pin_centroid",
               "pin_beam", "pin_both", "rect", "square", "varpin_web",
               "pin_centroid/general", "pin_beam/general", "rect/general",
-              "web_max")
+              "web_max", "varpin_parity")
 
 _PROF = r"""
-__shared__ unsigned long long s_phase_clocks[8][8];
-__device__ unsigned long long g_phase_clocks[9];
+__shared__ unsigned long long s_phase_clocks[8][12];
+__device__ unsigned long long g_phase_clocks[12];
 #define PHASE_ADD(i, t0) do { long long now_ = clock64(); \
   if ((threadIdx.x & 31) == 0) s_phase_clocks[threadIdx.x >> 5][i] += \
       now_ - (t0); t0 = now_; } while (0)
+#define PHASE_COUNT(i, v) do { if ((threadIdx.x & 31) == 0) \
+  s_phase_clocks[threadIdx.x >> 5][i] += (v); } while (0)
 extern "C" int PHASE_READER(unsigned long long* host) {
   cudaMemcpyFromSymbol(host, g_phase_clocks, sizeof(g_phase_clocks));
-  unsigned long long zero[9] = {0};
+  unsigned long long zero[12] = {0};
   cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
   return (int)cudaDeviceSynchronize();
 }
@@ -887,13 +892,25 @@ _LOOP = ("  float rsum = 0.0f;\n  int dcnt = 0;\n"
          "  for (int t = 0; t < num_steps; ++t) {\n")
 _LOOP_PROF = ("  float rsum = 0.0f;\n  int dcnt = 0;\n"
               "  if (lane == 0)\n"
-              "    for (int i = 0; i < 8; ++i) s_phase_clocks[warp][i] = 0;\n"
+              "    for (int i = 0; i < 12; ++i) s_phase_clocks[warp][i] = 0;\n"
               "  long long t_loop = clock64();\n"
               "  for (int t = 0; t < num_steps; ++t) {\n")
 _FLUSH = ("  PHASE_ADD(7, t_loop);\n  if (lane == 0) {\n"
-          "    for (int i = 0; i < 8; ++i)\n"
-          "      atomicAdd(&g_phase_clocks[i], s_phase_clocks[warp][i]);\n"
-          "    atomicAdd(&g_phase_clocks[8], 1ull);\n  }\n")
+          "    for (int i = 0; i < 12; ++i)\n"
+          "      atomicAdd(&g_phase_clocks[i],\n"
+          "                i == 8 ? 1ull : s_phase_clocks[warp][i]);\n"
+          "  }\n")
+#: the beam route's crossing count (fused_rollout_warp.cu::beam_crossings):
+#: its cycles, nested in the route's, and its counters
+_CROSSINGS = (
+    ("fused_rollout_warp.cu", "  __syncwarp();  // the route's writes are "
+     "done\n", "", "  long long tc_ = clock64();\n"),
+    ("fused_rollout_warp.cu", "  if (apart) {\n", "  PHASE_COUNT(9, 1);\n"
+     "  PHASE_COUNT(10, V);\n  PHASE_COUNT(11, apart ? (V * (V - 1) / 2 + 31) "
+     "/ 32 : 0);\n", ""),
+    ("fused_rollout_warp.cu", "  return warp_sum(ints);\n}",
+     "  PHASE_ADD(6, tc_);\n", ""),
+)
 #: (file, anchor, text put before it, text put after it)
 _STAMPS = (
     ("fused_rollout_warp.cu", '#include "fused_warp.cuh"\n', "",
@@ -922,6 +939,7 @@ _STAMPS = (
      "\n    if constexpr (TIER == T_WIDE)", "", ""),
     ("fused_rollout_warp.cu", "  store_rows<FLAT>(p, out.grid + b * A, "
      "bd.grid, lane);\n", _FLUSH, ""),
+    *_CROSSINGS,
     ("fused_rollout.cu", '#include "fused_warp.cuh"\n', "",
      _PROF.replace("PHASE_READER", "phase_clocks_reduced")),
     ("fused_rollout.cu", "  const int c0 = b.n0, c1 = K == K_SQUARE ? 0 : "
@@ -953,7 +971,7 @@ _STAMPS = (
     ("fused_rollout.cu", "  b.fresh = b.fresh || done;\n", "",
      "  PHASE_ADD(4, t_);\n"),
     ("fused_rollout.cu", "  if (num_steps > 0) {\n    rng.salt = step_salt("
-     "blk_salt, 0);\n", "  if (lane == 0)\n    for (int i = 0; i < 8; ++i) "
+     "blk_salt, 0);\n", "  if (lane == 0)\n    for (int i = 0; i < 12; ++i) "
      "s_phase_clocks[threadIdx.x >> 5][i] = 0;\n  long long t_loop = "
      "clock64();\n", ""),
     ("fused_rollout.cu", "anchors, sl, lane, words, 0, 0, bd);\n  }\n", "",
@@ -1049,7 +1067,7 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
         kind = "reduced" if fr.kernel_name(params) in ("square", "rect") \
             else "pin"
         reader = getattr(libs["stamped"], f"phase_clocks_{kind}")
-        counts = (ctypes.c_ulonglong * 9)()
+        counts = (ctypes.c_ulonglong * 12)()
         ms = {}
         for tag in ("plain", "stamped"):
             with _library(libs[tag]):
@@ -1067,13 +1085,21 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
         names = SPLIT_PHASES[kind]
         cycles = {n: counts[i] / boards for i, n in enumerate(names) if n}
         loop = counts[7] / boards
+        routes = counts[9]
+        cross = (f"; crossings {cycles['crossings'] / cycles['route']!r} of "
+                 "the route" if cycles.get("route") else "")
+        if routes:
+            cross += (f"; crossing counts a board and chunk "
+                      f"{routes / boards!r}, their mean V "
+                      f"{counts[10] / routes!r} and passes dealt a lane "
+                      f"{counts[11] / routes!r}")
         print(f"[split] {label} ({fn.kernel} kernel, {fn.tier} "
               f"instantiation): ms per chunk "
               f"{ms['plain']!r} (stamped {ms['stamped']!r}); episodes a board "
               f"and chunk {done / BATCH / TIMED_CHUNKS!r}; cycles a board and "
               f"chunk {loop!r}; shares "
               f"{json.dumps({n: c / loop for n, c in cycles.items()})}; "
-              f"cycles {json.dumps(cycles)}", flush=True)
+              f"cycles {json.dumps(cycles)}{cross}", flush=True)
 
 
 def phase_turns(parent, rows=PHASE_ROWS, this=REPO):

@@ -49,8 +49,8 @@
 //     parent path's rank, the new pin's key, the candidate's index). A
 //     path's rank among the beams follows from its parent's rank and its
 //     new pin's key, so no path is compared position by position. The
-//     crossings test the segments of a shared-memory slice, pair by pair
-//     across the lanes;
+//     crossings' pairs of routed segments are dealt over the lanes from
+//     shared memory;
 //   * 8 boards per 256-thread block, at most 64 registers a thread in all
 //     three instantiations: all of 4096 boards (31 warps per SM on 132 SMs)
 //     are resident at once. The beam's state spills a few words (8-16 B);
@@ -387,7 +387,6 @@ constexpr int NO_SEG = -1;        // no route segment in this slot
 
 static_assert(MAX_BW <= 4, "a byte of a path position, 2 bits of an index");
 static_assert(DEFAULT_M <= 16, "a beam's lane in 4 bits, 2+ nets a turn");
-static_assert(DEFAULT_N * DEFAULT_M <= 4 * 32, "4 segment slots per lane");
 
 // The min of v over the lanes [base, base + M) of the caller's net, on
 // every lane of it (j = lane - base): a suffix min towards lane base, then
@@ -415,14 +414,62 @@ __device__ __forceinline__ int seg_first(bool hit, int base,
   return max(__ffs((__ballot_sync(FULL, hit) >> base) & segmask) - 1, 0);
 }
 
-// A route segment's endpoints (coordinates 0..31), a byte each.
-__device__ __forceinline__ int pack_seg(float x1, float y1, float x2,
-                                        float y2) {
-  return (int)x1 | (int)y1 << 8 | (int)x2 << 16 | (int)y2 << 24;
+// A route segment's endpoints (coordinates 0..254), a byte each.
+__device__ __forceinline__ int pack_seg(int x1, int y1, int x2, int y2) {
+  return x1 | y1 << 8 | x2 << 16 | y2 << 24;
 }
 
 __device__ __forceinline__ float seg_coord(int s, int i) {
   return (float)((s >> (8 * i)) & 0xff);
+}
+
+// The crossings of a beam route's segments on different nets (the same on
+// every lane). segs[n * M + t] is net n's segment t, two words a lane (N *
+// M is the pin table's length, at most MAX_P), NO_SEG from t = lim - 1 on:
+// NO_SEG words part the nets. The routed ones are unpacked in pin order into
+// the centroid route's scratch (its route is done), tagged (1, the NO_SEG
+// words before it): two share a net exactly when they share that count.
+// Their pairs are dealt over the lanes as centroid_wl_int deals them.
+__device__ int beam_crossings(const int* segs, int N, int M, int lane) {
+  static_assert(MAX_P <= 64, "two words a lane");
+  if (N < 2) return 0;
+  auto& cs = centroid_scratch<2>();
+  __syncwarp();  // the route's writes are done
+  int V = 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = lane + 32 * r, sg = q < N * M ? segs[q] : NO_SEG;
+    const uint32_t R = __ballot_sync(FULL, sg != NO_SEG);
+    const int i = V + __popc(R & ((1u << lane) - 1u));
+    if (sg != NO_SEG) {
+      cs.seg[i] = make_float4(seg_coord(sg, 0), seg_coord(sg, 1),
+                              seg_coord(sg, 2), seg_coord(sg, 3));
+      cs.tag[i] = make_float2(1.f, (float)(q - i));
+    }
+    V += __popc(R);
+  }
+  __syncwarp();
+  int ints = 0;
+  // two nets or more (the tags rise in pin order)
+  const bool apart = V > 1 && cs.tag[0].y != cs.tag[V - 1].y;
+  if (apart) {
+    const int q32 = 32 / V, r32 = 32 - q32 * V;
+    int d = lane / V + 1, i = lane - (d - 1) * V;
+    for (int k = lane; k < V * (V - 1) / 2; k += 32) {
+      const int j = i + d < V ? i + d : i + d - V;
+      if (cs.tag[i].y != cs.tag[j].y) {
+        const float4 a = cs.seg[i], c = cs.seg[j];
+        ints += seg_intersect(a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w);
+      }
+      i += r32;
+      d += q32;
+      if (i >= V) {
+        i -= V;
+        ++d;
+      }
+    }
+  }
+  return warp_sum(ints);
 }
 
 // Beam-route wirelength and crossing count (the same on every lane): every
@@ -625,34 +672,8 @@ __device__ void beam_wl_int(const FusedRolloutParams& p,
         wl += __shfl_sync(FULL, term, gg * M + t);
     if (real) segs[n * M + j] = sv ? pack_seg(rx, ry, rx2, ry2) : NO_SEG;
   }
-  __syncwarp();
-
-  // crossings of segments on different nets: segment a broadcast from
-  // shared memory, the later nets' segments on the lanes' own slots
-  int own[4], own_net[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = lane + 32 * r;
-    own[r] = i < N * M ? segs[i] : NO_SEG;
-    own_net[r] = i / M;
-  }
-  int ints = 0;
-  for (int na = 0; na + 1 < N; ++na) {
-    for (int t = 0; t + 1 < M; ++t) {
-      const int sa = segs[na * M + t];
-      if (sa == NO_SEG) continue;
-      const float ax1 = seg_coord(sa, 0), ay1 = seg_coord(sa, 1);
-      const float ax2 = seg_coord(sa, 2), ay2 = seg_coord(sa, 3);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if (own[r] != NO_SEG && own_net[r] > na)
-          ints += seg_intersect(ax1, ay1, ax2, ay2, seg_coord(own[r], 0),
-                                seg_coord(own[r], 1), seg_coord(own[r], 2),
-                                seg_coord(own[r], 3));
-    }
-  }
   wl_out = wl;
-  ints_out = warp_sum(ints);
+  ints_out = beam_crossings(segs, N, M, lane);
 }
 
 // ---- the general instantiation's beam route (nets of up to 48 pins) ------
@@ -1017,9 +1038,9 @@ __device__ float beam_nets(const FusedRolloutParams& p, const int (&pin)[2],
     const bool sv = j[s] + 1 <= lim[s] - 1;
     const int ddx = rx[s] - rx2[s], ddy = ry[s] - ry2[s];
     term[s] = sv ? sqrtf((float)(ddx * ddx + ddy * ddy)) : 0.f;
-    if (inseg[s] && n[s] < N)  // endpoints a byte each, as pack_seg
+    if (inseg[s] && n[s] < N)
       segs[n[s] * M + j[s]] =
-          sv ? rx[s] | ry[s] << 8 | rx2[s] << 16 | ry2[s] << 24 : NO_SEG;
+          sv ? pack_seg(rx[s], ry[s], rx2[s], ry2[s]) : NO_SEG;
   }
   // the wirelength, nets outer, positions inner (adding +0 past a net's
   // last segment is exact)
@@ -1063,35 +1084,8 @@ __device__ void beam_wl_int_general(const FusedRolloutParams& p,
       M > 32   ? beam_nets<SPAN>(p, pin, cnt_l, start_l, lane, segs)
       : M > 16 ? beam_nets<SLOTS>(p, pin, cnt_l, start_l, lane, segs)
                : beam_nets<SEGMENTS>(p, pin, cnt_l, start_l, lane, segs);
-  __syncwarp();
-
-  // crossings of segments on different nets: segment a broadcast from
-  // shared memory, the later nets' segments on the lanes' own slots
-  // (N * M <= MAX_P: two)
-  int own[2], own_net[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = lane + 32 * r;
-    own[r] = i < N * M ? segs[i] : NO_SEG;
-    own_net[r] = i / M;
-  }
-  int ints = 0;
-  for (int na = 0; na + 1 < N; ++na) {
-    for (int t = 0; t + 1 < M; ++t) {
-      const int sa = segs[na * M + t];
-      if (sa == NO_SEG) continue;
-      const float ax1 = seg_coord(sa, 0), ay1 = seg_coord(sa, 1);
-      const float ax2 = seg_coord(sa, 2), ay2 = seg_coord(sa, 3);
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        if (own[r] != NO_SEG && own_net[r] > na)
-          ints += seg_intersect(ax1, ay1, ax2, ay2, seg_coord(own[r], 0),
-                                seg_coord(own[r], 1), seg_coord(own[r], 2),
-                                seg_coord(own[r], 3));
-    }
-  }
   wl_out = wl;
-  ints_out = warp_sum(ints);
+  ints_out = beam_crossings(segs, N, M, lane);
 }
 
 // The routed terminal reward of the kernel's reward type (reward_rows);

@@ -195,6 +195,15 @@ GENERAL_CASES = {
     "pin_4x32_nets10": ("rectangle_pin", {
         "height": 4, "width": 32, "min_num_nets": 10, "max_num_nets": 10,
         "min_num_pins_per_net": 2, "max_num_pins_per_net": 2}),
+    # the beam route's crossings at 24 segments, one a net, width 4
+    "nets24_ppn2_both_bw4": ("rectangle_pin", {
+        **EDGES["nets24_both"][1], "reward_beam_width": 4}),
+    # segments whose byte coordinates pass 31 (a side of 36)
+    "nets8_varpin_beam_4x36": ("rectangle_pin", {
+        **_ROOMY, "height": 4, "width": 36, "min_num_nets": 8,
+        "max_num_nets": 8, "min_num_pins_per_net": 2,
+        "max_num_pins_per_net": 6, "reward_type": "beam",
+        "reward_beam_width": 3}),
     "rect_4x33": ("rectangle", {
         "height": 4, "width": 33, "min_component_h": 1, "max_component_h": 3,
         "min_component_w": 1, "max_component_w": 3, "min_num_components": 10,

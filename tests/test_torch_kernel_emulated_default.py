@@ -54,6 +54,26 @@ CASES = {
         **_ROOMY, "min_num_nets": 8, "max_num_nets": 8,
         "min_num_pins_per_net": 6, "max_num_pins_per_net": 6,
         "reward_type": "both"}),
+    # the beam route's crossings: one net of 16 pins (no pair on two nets)
+    "net1_ppn16_beam": ("rectangle_pin", {
+        **_ROOMY, "min_num_nets": 1, "max_num_nets": 1,
+        "min_num_pins_per_net": 16, "max_num_pins_per_net": 16,
+        "reward_type": "beam"}),
+    # one segment a net: every pair on two nets
+    "nets8_ppn2_beam": ("rectangle_pin", {
+        "min_num_nets": 8, "max_num_nets": 8, "min_num_pins_per_net": 2,
+        "max_num_pins_per_net": 2, "reward_type": "beam"}),
+    # 40 segments: 780 pairs, 25 a lane, and segments on the second word
+    "nets8_ppn6_beam_bw1": ("rectangle_pin", {
+        **_ROOMY, "min_num_nets": 8, "max_num_nets": 8,
+        "min_num_pins_per_net": 6, "max_num_pins_per_net": 6,
+        "reward_type": "beam", "reward_beam_width": 1}),
+    # 2..16 pins a net under "both": nets of unequal segment runs, the
+    # widest table a default board holds (N * M = 48)
+    "nets3_varpin_2_16_both": ("rectangle_pin", {
+        **_ROOMY, "min_num_nets": 3, "max_num_nets": 3,
+        "min_num_pins_per_net": 2, "max_num_pins_per_net": 16,
+        "reward_type": "both"}),
 }
 
 
