@@ -44,11 +44,10 @@ entry points a user calls:
 Phases (any failure raises and the exit code is not 0):
   1. device  — requires CUDA; prints the card and its power limit
   2. build   — one nvcc per ops/csrc/*.cu, all at once, linked into
-     build/torch_kernels/; reports ``ptxas -v`` for every kernel, and the
-     general pin instantiations' registers and boards resident per SM
-     beside their first build's (``GENERAL_PTXAS_PR14``); each must hold
-     32 boards per SM (all 4,096 at once); the general square's beside
-     its build before the redesign (``GENERAL_PTXAS_PR16``)
+     build/torch_kernels/; reports ``ptxas -v`` for every kernel, and each
+     pin instantiation's registers, stack frame, spill stores and boards
+     resident per SM; each general one must hold 32 boards per SM (all
+     4,096 at once)
   3. TPU hardware goldens — k7 start, 128 boards, seed 1234, block 128: the
      rows of experiments/results/fused_hw_validation.json
   4. JAX goldens — zero start, 128 boards, seed 1234 (the varying-pins
@@ -62,14 +61,12 @@ Phases (any failure raises and the exit code is not 0):
      kernel's after a warm-up of the card, with the host's launches
      enqueued ahead of the card; the centroid, beam and rect kernels'
      times at 1024, 4096 and 16384 boards; each varying-pins config's time
-     under each routing reward; the default instantiations' times and
-     ``ptxas -v`` beside their recorded baseline
+     under each routing reward
   5b. [envelope]: the general instantiations (up to 24 nets, 48 pins per
      net, a side over 32 at area <= 144) on the nine edges of the JAX
      kernel's envelope (tests/fixtures/torch_fused_zero_envelope_*.json):
      leaf hashes equal to the JAX kernel's at the fixture's size, kernel ==
-     plain at 4096 boards (timed, with its bound, beside its recorded
-     times, ``GENERAL_MS_PR15`` and ``GENERAL_MS_PR16``), and the matrix
+     plain at 4096 boards (timed, with its bound), and the matrix
      tool's fused row on each, its launches equal to its calls; four of
      them timed under each routing reward, four at 1024, 4096 and 16384
      boards; the flagship's
@@ -202,7 +199,8 @@ checkout's kernel sources against this one's, leaves equal, timed in
 turns).
 
 The second-to-last line is the kernels' JSON record, each with its bound
-(``_chunk_bound``); the last line is ``{"ok": true, "device": {...}}``.
+(``portbench.workmodel.chunk_bound``, the benchmark's work model); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -273,40 +271,9 @@ SPLIT_EDGES = ("nets24_both", "ppn24_beam4", "ppn48_beam2",
 GENERAL_ROWS = {"centroid": "web_nets10", "beam": "ppn24_beam4",
                 "both": "nets24_both", "square": "tall_square",
                 "rect": "wide_rect"}
-#: the default instantiations as recorded (PERF.md §6; NVIDIA H100 80GB
-#: HBM3, 700.00 W): card ms per chunk by row (the pin rows with their
-#: episode end on per-warp shared scratch, square and rect from before the
-#: general instantiations were added), and ptxas -v's (registers, stack
-#: frame bytes, spill store bytes) by kernel, which the scratch left as they
-#: were (it adds shared memory: 25,600 B a block for centroid and "both",
-#: 9,472 for beam, against 8,192)
-BASELINE_MS = {"pin_centroid": 0.24745, "pin_beam": 0.50872,
-           "pin_both": 0.56482, "square": 0.06706, "rect": 0.10307,
-           "varpin_web": 0.29060}
-BASELINE_PTXAS = {"centroid": (64, 40, 0), "beam": (64, 48, 4),
-              "both": (64, 56, 12), "square": (40, 0, 0),
-              "rect": (40, 0, 0)}
-#: the general pin instantiations as PR 14 built them (PERF.md §6; NVIDIA
-#: H100 80GB HBM3): registers, and the boards one SM held at once (8 a
-#: block; 3,168 of 4,096 boards resident for the beam, 2,112 for "both")
-GENERAL_PTXAS_PR14 = {"centroid": (70, 24), "beam": (80, 24),
-                      "both": (88, 16)}
-#: the general square instantiation before its redesign (PERF.md §6, row
-#: 4g; CUDA 12.8's ptxas): registers, stack frame bytes, spill store bytes
-GENERAL_PTXAS_PR16 = {"square": (48, 0, 0)}
 #: the boards one SM must hold at once in each general pin instantiation:
 #: 32, so that 4,096 boards are resident at once on 132 SMs
 GENERAL_BOARDS_PER_SM = 32
-#: [envelope]'s edges as recorded before the general centroid and rect
-#: kernels were redesigned (PERF.md §6, rows 1g-5g; NVIDIA H100 80GB HBM3,
-#: 700.00 W): card ms per chunk at 4096 boards
-GENERAL_MS_PR15 = {"web_nets10": 0.84830, "wide_pin": 0.43728,
-                   "nets24_both": 1.39485, "web_nets10_both": 1.06724,
-                   "ppn24_beam4": 1.68295, "ppn48_beam2": 1.57196,
-                   "wide_rect": 0.13681, "tall_square": 0.12996}
-#: [envelope]'s edges as recorded before the general square kernel was
-#: redesigned (PERF.md §6, row 4g; NVIDIA H100 80GB HBM3, 700.00 W)
-GENERAL_MS_PR16 = {"tall_square": 0.11031}
 #: main path 3's ranks: chained seeds
 RANK_SEEDS = (1, 2)
 #: the kernels (one warp per board; 8 boards per CUDA block, the reduced
@@ -343,13 +310,6 @@ SOURCES = {k: "placement_tpu_torch/ops/csrc/fused_rollout_warp.cu"
            for k in ("centroid", "beam", "both")}
 SOURCES.update({k: "placement_tpu_torch/ops/csrc/fused_rollout.cu"
                 for k in ("square", "rect")})
-
-#: an H100 SXM's rates (NVIDIA's data sheet and Hopper white paper): HBM3
-#: bytes/s; non-tensor instructions, 128 lanes an SM a clock over 132 SMs
-#: at the 1.98 GHz boost clock, of which 64 lanes may be integer
-HBM_BYTES_S = 3.35e12
-LANE_OPS_S = 132 * 128 * 1.98e9
-INT_OPS_S = 132 * 64 * 1.98e9
 
 
 def _check(cond, what):
@@ -397,12 +357,10 @@ def _card():
 
 
 def phase_build():
-    """Builds the kernels; prints ``ptxas -v`` of every instantiation, the
-    default ones' (registers, stack frame, spill stores) beside their
-    recorded baseline (``BASELINE_PTXAS``), the general pin ones'
-    registers and boards resident per SM beside PR 14's
-    (``GENERAL_PTXAS_PR14``), and the general square's beside its build
-    before the redesign (``GENERAL_PTXAS_PR16``)."""
+    """Builds the kernels; prints ``ptxas -v`` of every instantiation, and
+    each pin instantiation's registers, stack frame, spill stores and the
+    boards one SM holds at once, which must be ``GENERAL_BOARDS_PER_SM``
+    or more in the general ones."""
     import torch
     from placement_tpu_torch.ops import _build, fused_rollout
     lib, seconds = _build.build()
@@ -427,35 +385,23 @@ def phase_build():
             m = re.search(r"Used (\d+) registers", line)
             if m and "regs" not in got:
                 got["regs"] = int(m[1])
-    for k, want in BASELINE_PTXAS.items():
-        got = usage.get(k, {})
-        got = (got.get("regs"), got.get("stack"), got.get("spill"))
-        print(f"[build] {k}: (registers, stack frame B, spill stores B) "
-              f"{got} (baseline {want}; same {got == want})")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for k, (regs, boards) in GENERAL_PTXAS_PR14.items():
-        params = _row(KERNELS[k][0])[0]
-        got = usage.get(f"{k}_general", {})
-        now = {g: fused_rollout.boards_per_sm(params, g) for g in (False, True)}
-        print(f"[build] {k}_general: {got.get('regs')} registers, "
+    pins = [(k, tier, _row(KERNELS[k][0])[0])
+            for k in ("centroid", "beam", "both")
+            for tier in ("default", "general")]
+    pins.append(("centroid", "wide", _row("web_max_pooled")[0]))
+    for k, tier, params in pins:
+        name = k if tier == "default" else f"{k}_{tier}"
+        got = usage.get(name, {})
+        now = fused_rollout.boards_per_sm(params, tier)
+        print(f"[build] {name}: {got.get('regs')} registers, "
               f"{got.get('stack')} B stack frame, {got.get('spill')} B spill "
-              f"stores (PR 14: {regs} registers); {now[True]} boards "
-              f"resident per SM, {now[True] * sms} on {sms} SMs (PR 14: "
-              f"{boards}, {boards * sms}); the default one {now[False]}")
-        _check(now[True] >= GENERAL_BOARDS_PER_SM,
-               f"{k}_general: {now[True]} boards resident per SM, under "
-               f"{GENERAL_BOARDS_PER_SM}")
-    for k, was in GENERAL_PTXAS_PR16.items():
-        got = usage.get(f"{k}_general", {})
-        got = (got.get("regs"), got.get("stack"), got.get("spill"))
-        print(f"[build] {k}_general: (registers, stack frame B, spill stores "
-              f"B) {got} (GENERAL_PTXAS_PR16: {was})")
-    got = usage.get("centroid_wide", {})
-    now = fused_rollout.boards_per_sm(_row("web_max_pooled")[0],
-                                      fused_rollout.TIERS.index("wide"))
-    print(f"[build] centroid_wide: {got.get('regs')} registers, "
-          f"{got.get('stack')} B stack frame, {got.get('spill')} B spill "
-          f"stores; {now} boards resident per SM, {now * sms} on {sms} SMs")
+              f"stores; {now} boards resident per SM, {now * sms} on {sms} "
+              "SMs")
+        if tier == "general":
+            _check(now >= GENERAL_BOARDS_PER_SM,
+                   f"{name}: {now} boards resident per SM, under "
+                   f"{GENERAL_BOARDS_PER_SM}")
 
 
 def phase_hw_golden(kernel):
@@ -553,75 +499,6 @@ def _plain_ms(params, leaves, seed, block):
     return (time.perf_counter() - t0) * 1e3
 
 
-def _route_pairs(params, leaves):
-    """Per board, averaged over ``leaves``: the pins in use, and the segment
-    pairs each routing reward tests for a crossing. Both test only pairs on
-    different nets. The centroid route has a segment per pin, but one for a
-    2-pin net; the beam route has ``min(count, M) - 1`` per net. Returns
-    (pins, centroid pairs, beam pairs)."""
-    import torch
-    N, M = params.max_num_nets, params.max_num_pins_per_net
-    net = leaves["pin_net"].long()
-    slot = torch.arange(net.shape[1], device=net.device)
-    ok = (slot < leaves["num_pins"]) & (net >= 0) & (net < N)
-    cnt = torch.zeros(net.shape[0], N + 1, dtype=torch.int64,
-                      device=net.device)
-    cnt.scatter_add_(1, torch.where(ok, net, N), torch.ones_like(net))
-    cnt = cnt[:, :N]
-
-    def pairs(seg):
-        return float(((seg.sum(1) ** 2 - (seg * seg).sum(1)) // 2)
-                     .double().mean())
-
-    return (float(ok.sum(1).double().mean()),
-            pairs(torch.where(cnt == 2, 1, cnt)),
-            pairs((cnt.clamp(max=M) - 1).clamp(min=0)))
-
-
-def _chunk_bound(params, batch, steps, episodes, leaves):
-    """The least time the card could take for one chunk: bytes (every leaf
-    read once and written once, plus the per-board sums) over the HBM rate,
-    or the operations the kernel's code does for this data over the
-    instruction rates, whichever is larger. Operations are counted from the
-    code (a model, not a measurement): per board-step the action sampling, the
-    paint, the pin rotation and the next legality planes; per episode
-    (``episodes`` of this run, pins and crossing tests as on ``leaves``'
-    boards, ``_route_pairs``) the generator and the routing reward. Returns
-    (ms, "bytes" or "operations", operations, bytes)."""
-    from placement_tpu_torch.ops import fused_rollout as fr
-    H, C, N = params.height, params.max_components, params.max_num_nets
-    M, PPC = params.max_num_pins_per_net, params.max_num_pins_per_component
-    fp = max(params.max_component_h, params.max_component_w)
-    kernel = fr.kernel_name(params)
-    planes = 1 if kernel == "square" else 2
-    step = planes * H * (2 * fp + 6) + 3 * H + 40 + fp
-    gen = 10 * C
-    route_int = route_fp = 0.0
-    if params.has_pins:
-        pins, centroid_pairs, beam_pairs = _route_pairs(params, leaves)
-        step += 10 * params.max_pins
-        gen = (N * (4 * C * C + 4 * M * C + 20) + 2 * C * PPC * PPC
-               + pins * (N + 15) + 20 * C)
-        if params.max_num_pins_per_net > params.min_num_pins_per_net:
-            span = params.max_num_pins_per_net - params.min_num_pins_per_net
-            gen += 60 * N + span * N * N
-        if kernel in ("centroid", "both"):
-            route_int += 20 * pins + 10 * N
-            route_fp += 35 * centroid_pairs
-        if kernel in ("beam", "both"):
-            bw = int(params.reward_beam_width)
-            rounds = max(pins / N - 1, 0)
-            route_int += N * rounds * bw * (6 * M + 2 * bw * M + 8 * bw * bw)
-            route_fp += 35 * beam_pairs
-    ops_int = batch * steps * step + episodes * (gen + route_int)
-    ops_fp = episodes * route_fp
-    nbytes = 2 * 4 * batch * sum(fr.leaf_widths(params).values()) + 8 * batch
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max(ops_int / INT_OPS_S, (ops_int + ops_fp) / LANE_OPS_S)
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by, ops_int + ops_fp, nbytes
-
-
 def phase_kernel_vs_plain(label, params, block, batch=BATCH, timed=True,
                           plain_turns=True):
     """The kernel against its plain version on ``params`` at ``batch``
@@ -632,6 +509,7 @@ def phase_kernel_vs_plain(label, params, block, batch=BATCH, timed=True,
     tens of seconds a chunk), not of two more in turns with the kernel."""
     import torch
     from placement_tpu_torch.ops import fused_rollout as fr
+    from portbench import workmodel
     label += f" ({fr.kernel_name(params)} kernel)"
     fn = fr.make_fused_rollout(params, batch, STEPS, block=block,
                                device="cuda")
@@ -670,7 +548,7 @@ def phase_kernel_vs_plain(label, params, block, batch=BATCH, timed=True,
     if not timed:
         return (err,)
     # the bound of the second chunk (from mid-run boards) on its own data
-    bound_ms, bound_by, ops, nbytes = _chunk_bound(
+    bound_ms, bound_by, ops, nbytes = workmodel.chunk_bound(
         params, batch, STEPS, int(got_d.sum()), leaves)
     # in turns: plain, kernel, kernel, plain
     plain = [_plain_ms(params, leaves, 3, block)] if plain_turns else []
@@ -708,14 +586,9 @@ def phase_envelope():
                                     ENVELOPE_BLOCK, plain_turns=False)
         row, _ = bm.measure(name, params, "envelope edge", BATCH,
                             device="cuda", block=ENVELOPE_BLOCK)
-        was = "; ".join(f"{got[1] / rec[name]!r} x {label}'s {rec[name]!r}"
-                        for label, rec in (
-                            ("GENERAL_MS_PR15", GENERAL_MS_PR15),
-                            ("GENERAL_MS_PR16", GENERAL_MS_PR16))
-                        if name in rec) or "no recorded time"
         print(f"[envelope] {name} ({row['kernel']} kernel, general "
               f"instantiation): {BATCH} boards, block {ENVELOPE_BLOCK}: "
-              f"kernel {got[1]!r} ms per chunk ({was}), plain {got[2]!r} "
+              f"kernel {got[1]!r} ms per chunk, plain {got[2]!r} "
               f"ms, bound {got[3]!r} ms by {got[4]}; bench_matrix.measure "
               f"{row['steps_per_sec']!r} env-steps/s, {row['launches']} "
               f"launches for {row['calls']} calls, {row['episodes']} "
@@ -732,19 +605,19 @@ def phase_envelope():
     for row in ("pin_centroid", "pin_beam", "rect"):
         params, block = _row(row)
         ms = {}
-        for general in (False, True):
+        for tier in ("default", "general"):
             fn = fr.make_fused_rollout(params, BATCH, STEPS, block=block,
                                        device="cuda")
-            fn._kparams.tier = int(general)
+            fn._kparams.tier = fr.TIERS.index(tier)
             leaves = fr.zero_leaves(params, BATCH, "cuda")
             for seed in (1, 2):
                 leaves, _, _ = fn.per_board(leaves, seed)
-            ms[general] = (_kernel_ms(fn, leaves, 10, TIMED_CHUNKS), leaves)
-        same = all(torch.equal(ms[False][1][k], ms[True][1][k])
-                   for k in fr._LEAVES)
-        print(f"[envelope] {row} on the general instantiation: "
-              f"{ms[True][0]!r} ms per chunk, the default one {ms[False][0]!r}"
-              f" ms ({ms[True][0] / ms[False][0]!r} x); leaves equal {same}")
+            ms[tier] = (_kernel_ms(fn, leaves, 10, TIMED_CHUNKS), leaves)
+        (dms, dleaves), (gms, gleaves) = ms["default"], ms["general"]
+        same = all(torch.equal(dleaves[k], gleaves[k]) for k in fr._LEAVES)
+        print(f"[envelope] {row} on the general instantiation: {gms!r} ms "
+              f"per chunk, the default one {dms!r} ms ({gms / dms!r} x); "
+              f"leaves equal {same}")
         _check(same, f"{row}: the general instantiation's leaves differ")
     return out
 
@@ -768,6 +641,7 @@ def phase_wide():
     import torch
     from placement_tpu_torch.ops import fused_rollout as fr
     from placement_tpu_torch.tools import bench_matrix as bm
+    from portbench import workmodel
     params = _row("web_max_pooled")[0]
     _check(fr.kernel_tier(params) == "wide", "web_max: not the wide tier")
     fn = fr.make_fused_rollout(params, BATCH, STEPS, block=BLOCK,
@@ -798,7 +672,7 @@ def phase_wide():
     _check(err <= 5e-4, "web_max: board rewards differ")
     leaves, _, dcnt = fn.per_board(got, 5)
     ms = _kernel_ms(fn, leaves, 10, TIMED_CHUNKS)
-    bound_ms, bound_by, ops, nbytes = _chunk_bound(
+    bound_ms, bound_by, ops, nbytes = workmodel.chunk_bound(
         params, BATCH, STEPS, int(dcnt.sum()), leaves)
     row, _ = bm.measure("web_max", params, "web app maximum", BATCH,
                         device="cuda", block=BLOCK)
@@ -1013,7 +887,8 @@ def _library(lib):
 
 
 def _phase_row(name):
-    """A row of ``PHASE_ROWS``: (label, params, block, general or None)."""
+    """A row of ``PHASE_ROWS``: (label, params, block, the tier it is
+    forced onto or None)."""
     base, _, variant = name.partition("/")
     fixture = FIXTURES / f"torch_fused_zero_envelope_{base}.json"
     if fixture.exists():
@@ -1029,15 +904,15 @@ def _phase_row(name):
         params, block = _row(base)
     if variant in ("centroid", "beam", "both"):
         params = params.replace(reward_type=variant)
-    return name, params, block, (True if variant == "general" else None)
+    return name, params, block, ("general" if variant == "general" else None)
 
 
-def _row_fn(params, block, general):
+def _row_fn(params, block, tier):
     from placement_tpu_torch.ops import fused_rollout as fr
     fn = fr.make_fused_rollout(params, BATCH, STEPS, block=block,
                                device="cuda")
-    if general is not None:
-        fn._kparams.tier = int(general)
+    if tier is not None:
+        fn._kparams.tier = fr.TIERS.index(tier)
     leaves = fr.zero_leaves(params, BATCH, "cuda")
     for seed in (1, 2):
         leaves, _, _ = fn.per_board(leaves, seed)
@@ -1063,7 +938,7 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
         libs[tag] = fr.load_kernel_library(path)
         print(f"[split] {tag} build of {src}: {seconds:.1f} s of nvcc")
     for name in rows:
-        label, params, block, general = _phase_row(name)
+        label, params, block, tier = _phase_row(name)
         kind = "reduced" if fr.kernel_name(params) in ("square", "rect") \
             else "pin"
         reader = getattr(libs["stamped"], f"phase_clocks_{kind}")
@@ -1071,7 +946,7 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
         ms = {}
         for tag in ("plain", "stamped"):
             with _library(libs[tag]):
-                fn, leaves = _row_fn(params, block, general)
+                fn, leaves = _row_fn(params, block, tier)
                 ms[tag] = _kernel_ms(fn, leaves, 10, TIMED_CHUNKS)
                 if tag == "stamped":
                     reader(counts)
@@ -1119,11 +994,11 @@ def phase_turns(parent, rows=PHASE_ROWS, this=REPO):
         print(f"[turns] {tag} build of {src}: {seconds:.1f} s of nvcc; "
               f"{path.name}")
     for name in rows:
-        label, params, block, general = _phase_row(name)
+        label, params, block, tier = _phase_row(name)
         runs = {}
         for tag in ("parent", "this"):
             with _library(libs[tag]):
-                fn, leaves = _row_fn(params, block, general)
+                fn, leaves = _row_fn(params, block, tier)
                 runs[tag] = (fn, fn.per_board(leaves, 77))
         (fa, (la, ra, da)), (fb, (lb, rb, db)) = runs["parent"], runs["this"]
         same = (all(torch.equal(la[k], lb[k]) for k in fr._LEAVES)
@@ -3231,11 +3106,6 @@ def main():
         "bound_by": bound_by,
         "library_ms": None,
     })
-    for row, was in BASELINE_MS.items():
-        now = results[row][1]
-        print(f"[kernel vs plain] {row}: {now!r} ms per chunk, baseline "
-              f"{was!r} ms: {now / was!r} x (within 3%: "
-              f"{abs(now / was - 1) <= 0.03})")
     print(f"[kernel vs plain] beam bw=4: max abs err {err4!r}, kernel "
           f"{ms4!r} ms, plain {plain4!r} ms")
     print(f"[kernel vs plain] varpin_parity: max abs err "

@@ -889,13 +889,13 @@ def load_kernel_library(path) -> ctypes.CDLL:
     return lib
 
 
-def boards_per_sm(params: EnvParams, tier: int) -> int:
+def boards_per_sm(params: EnvParams, tier: str) -> int:
     """How many boards one SM of the card holds at once in the pin kernel
-    that runs ``params``, in its instantiation ``tier`` (an index of
-    ``TIERS``; False and True pick the default and general ones): the CUDA
-    runtime's occupancy of its block, 8 boards a block."""
+    that runs ``params``, in its instantiation ``tier`` (a name of
+    ``TIERS``): the CUDA runtime's occupancy of its block, 8 boards a
+    block."""
     kparams = _kernel_params(params)
-    kparams.tier = int(tier)
+    kparams.tier = TIERS.index(tier)
     got = kernel_library().fused_rollout_boards_per_sm(ctypes.byref(kparams))
     if got < 0:
         raise RuntimeError(f"no occupancy for the {kernel_name(params)} "
@@ -908,8 +908,7 @@ class FusedRollout:
 
     On leaves that lie on the CPU it runs ``rollout_chunk_reference``; on
     CUDA leaves it launches the CUDA kernel specialised for ``params``
-    (``kernel``; in its instantiation ``tier``, general where
-    ``general``), or raises.
+    (``kernel``, in its instantiation ``tier``), or raises.
     ``launches`` counts kernel launches and nothing else. ``seed`` is a
     host int that must differ between calls.
     """
@@ -924,7 +923,6 @@ class FusedRollout:
         self.widths = leaf_widths(params)
         self.kernel = kernel_name(params)
         self.tier = kernel_tier(params)
-        self.general = self.tier == "general"
         self.launches = 0
         self._kparams = _kernel_params(params)
 

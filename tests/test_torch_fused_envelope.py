@@ -129,7 +129,7 @@ def _port_chain(name):
     _, t_params = _params(*EDGES[name])
     fn = torch_fused.make_fused_rollout(t_params, BATCH, STEPS, block=BLOCK,
                                         device="cpu")
-    assert fn.general
+    assert fn.tier == "general"
     leaves = torch_fused.leaves_from_numpy(_zero(t_params), "cpu")
     runs = []
     for seed in SEEDS:
@@ -311,7 +311,7 @@ def test_jax_refuses_what_the_wide_tier_takes(config, overrides):
     assert torch_fused.kernel_tier(t) == "wide"
     assert torch_fused.needs_wide(t) and not torch_fused.needs_general(t)
     fn = torch_fused.make_fused_rollout(t, 8, 5, device="cpu")
-    assert fn.tier == "wide" and not fn.general and fn._kparams.tier == 2
+    assert fn.tier == "wide" and fn._kparams.tier == 2
 
 
 @pytest.mark.parametrize("name", sorted(EDGES))

@@ -169,12 +169,12 @@ def test_varpin_net_counts_are_in_range(name, chains):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_chip_bound_counts_the_crossing_tests_made(name, chains):
-    """``chip_smoke._route_pairs`` counts, per board, the segment pairs the
-    routing rewards test for a crossing, as the kernels' loops do: the
-    centroid route's valid segments (one for a 2-pin net, its first pin's)
-    on different nets, and the beam route's ``min(count, M) - 1`` segments
-    per net, on different nets."""
-    import chip_smoke
+    """``portbench.workmodel.route_pairs`` counts, per board, the segment
+    pairs the routing rewards test for a crossing, as the kernels' loops
+    do: the centroid route's valid segments (one for a 2-pin net, its first
+    pin's) on different nets, and the beam route's ``min(count, M) - 1``
+    segments per net, on different nets."""
+    from portbench import workmodel
     _, t_params = _params(name)
     N, M = t_params.max_num_nets, t_params.max_num_pins_per_net
     leaves = chains(name)[1][-1][0]
@@ -191,7 +191,7 @@ def test_chip_bound_counts_the_crossing_tests_made(name, chains):
         beam += sum(seg[i] * seg[j] for i in range(N)
                     for j in range(i + 1, N))
         pins += len(net)
-    got = chip_smoke._route_pairs(
+    got = workmodel.route_pairs(
         t_params, torch_fused.leaves_from_numpy(leaves, "cpu"))
     assert got == pytest.approx((pins / BATCH, centroid / BATCH,
                                  beam / BATCH))

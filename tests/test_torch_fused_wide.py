@@ -44,7 +44,7 @@ def test_each_cell_runs_its_tier(cell):
     tier = fused_rollout.kernel_tier(params)
     assert tier == TIERS[cell]
     fn = fused_rollout.make_fused_rollout(params, 8, 5, device="cpu")
-    assert (fn.tier, fn.general) == (tier, tier == "general")
+    assert fn.tier == tier
     assert fn._kparams.tier == fused_rollout.TIERS.index(tier)
 
 

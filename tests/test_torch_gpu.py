@@ -394,8 +394,7 @@ def test_cuda_wide_kernel_holds_many_boards_and_refuses_past_its_tables(
     the card, and its limits are refused before any launch: 65 components
     with pins, or the beam reward past the general tables."""
     params = load_env_params("rectangle_spatial_pin").replace(**WEB_MAX)
-    wide = torch_fused.TIERS.index("wide")
-    assert torch_fused.boards_per_sm(params, wide) * \
+    assert torch_fused.boards_per_sm(params, "wide") * \
         torch.cuda.get_device_properties(0).multi_processor_count >= 4096
     over = params.replace(min_num_components=65, max_num_components=65,
                           height=32, width=32, min_component_h=1,

@@ -68,6 +68,12 @@ CASES = {
         **_ROOMY, "min_num_nets": 8, "max_num_nets": 8,
         "min_num_pins_per_net": 6, "max_num_pins_per_net": 6,
         "reward_type": "beam", "reward_beam_width": 1}),
+    # beam width 4 past a net's lanes (M = 3) and past the 2-pin nets'
+    # pins: every lane taken, then no candidate (the INF2 path)
+    "nets8_ppn2_3_beam4": ("rectangle_pin", {
+        **_ROOMY, "min_num_nets": 8, "max_num_nets": 8,
+        "min_num_pins_per_net": 2, "max_num_pins_per_net": 3,
+        "reward_type": "beam", "reward_beam_width": 4}),
     # 2..16 pins a net under "both": nets of unequal segment runs, the
     # widest table a default board holds (N * M = 48)
     "nets3_varpin_2_16_both": ("rectangle_pin", {
