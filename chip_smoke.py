@@ -732,7 +732,8 @@ def phase_reward_split(label, params, block):
 #: (slot 7 is the whole loop over the chunk's steps; "crossings", the beam
 #: route's crossing count, is a part of "route"). Slots 9-11 count the
 #: crossing counts that run (boards of two nets or more), their routed
-#: segments V and the pair passes dealt a lane, ceil(V (V - 1) / 64).
+#: segments V and the pair passes dealt a lane, ceil(V (V - 1) / 64); slot
+#: 12 the per-net allocations (allocate_net's calls, or allocate_net_wide's).
 SPLIT_PHASES = {
     "pin": ("sample", "paint and pins", "planes", "route",
             "generator (not allocate_net)", "allocate_net", "crossings"),
@@ -748,8 +749,8 @@ PHASE_ROWS = ("web_nets10", "nets24_both/centroid", "nets24_both",
               "web_max", "varpin_parity")
 
 _PROF = r"""
-__shared__ unsigned long long s_phase_clocks[8][12];
-__device__ unsigned long long g_phase_clocks[12];
+__shared__ unsigned long long s_phase_clocks[8][13];
+__device__ unsigned long long g_phase_clocks[13];
 #define PHASE_ADD(i, t0) do { long long now_ = clock64(); \
   if ((threadIdx.x & 31) == 0) s_phase_clocks[threadIdx.x >> 5][i] += \
       now_ - (t0); t0 = now_; } while (0)
@@ -757,7 +758,7 @@ __device__ unsigned long long g_phase_clocks[12];
   s_phase_clocks[threadIdx.x >> 5][i] += (v); } while (0)
 extern "C" int PHASE_READER(unsigned long long* host) {
   cudaMemcpyFromSymbol(host, g_phase_clocks, sizeof(g_phase_clocks));
-  unsigned long long zero[12] = {0};
+  unsigned long long zero[13] = {0};
   cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
   return (int)cudaDeviceSynchronize();
 }
@@ -766,11 +767,11 @@ _LOOP = ("  float rsum = 0.0f;\n  int dcnt = 0;\n"
          "  for (int t = 0; t < num_steps; ++t) {\n")
 _LOOP_PROF = ("  float rsum = 0.0f;\n  int dcnt = 0;\n"
               "  if (lane == 0)\n"
-              "    for (int i = 0; i < 12; ++i) s_phase_clocks[warp][i] = 0;\n"
+              "    for (int i = 0; i < 13; ++i) s_phase_clocks[warp][i] = 0;\n"
               "  long long t_loop = clock64();\n"
               "  for (int t = 0; t < num_steps; ++t) {\n")
 _FLUSH = ("  PHASE_ADD(7, t_loop);\n  if (lane == 0) {\n"
-          "    for (int i = 0; i < 12; ++i)\n"
+          "    for (int i = 0; i < 13; ++i)\n"
           "      atomicAdd(&g_phase_clocks[i],\n"
           "                i == 8 ? 1ull : s_phase_clocks[warp][i]);\n"
           "  }\n")
@@ -803,6 +804,8 @@ _STAMPS = (
      "  long long tg_ = clock64();\n"),
     ("fused_rollout_warp.cu", "  __syncwarp();  // the last episode's reads "
      "of the tables are done\n", "", "  PHASE_ADD(4, tg_);\n"),
+    ("fused_rollout_warp.cu", "  for (int n = 0; n < N; ++n) {  // draws "
+     "call_base .. call_base+N-1\n", "", "    PHASE_COUNT(12, 1);\n"),
     ("fused_rollout_warp.cu", "  // draw call_base+N: a random cell order per "
      "component", "  PHASE_ADD(5, tg_);\n", ""),
     ("fused_rollout_warp.cu", "  b.grid = 0u;\n  b.cur = 0;\n  planes_for",
@@ -845,7 +848,7 @@ _STAMPS = (
     ("fused_rollout.cu", "  b.fresh = b.fresh || done;\n", "",
      "  PHASE_ADD(4, t_);\n"),
     ("fused_rollout.cu", "  if (num_steps > 0) {\n    rng.salt = step_salt("
-     "blk_salt, 0);\n", "  if (lane == 0)\n    for (int i = 0; i < 12; ++i) "
+     "blk_salt, 0);\n", "  if (lane == 0)\n    for (int i = 0; i < 13; ++i) "
      "s_phase_clocks[threadIdx.x >> 5][i] = 0;\n  long long t_loop = "
      "clock64();\n", ""),
     ("fused_rollout.cu", "anchors, sl, lane, words, 0, 0, bd);\n  }\n", "",
@@ -942,7 +945,7 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
         kind = "reduced" if fr.kernel_name(params) in ("square", "rect") \
             else "pin"
         reader = getattr(libs["stamped"], f"phase_clocks_{kind}")
-        counts = (ctypes.c_ulonglong * 12)()
+        counts = (ctypes.c_ulonglong * 13)()
         ms = {}
         for tag in ("plain", "stamped"):
             with _library(libs[tag]):
@@ -968,6 +971,10 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
                       f"{routes / boards!r}, their mean V "
                       f"{counts[10] / routes!r} and passes dealt a lane "
                       f"{counts[11] / routes!r}")
+        if counts[12]:
+            cross += (f"; allocations a board and chunk "
+                      f"{counts[12] / boards!r}, cycles an allocation "
+                      f"{counts[5] / counts[12]!r}")
         print(f"[split] {label} ({fn.kernel} kernel, {fn.tier} "
               f"instantiation): ms per chunk "
               f"{ms['plain']!r} (stamped {ms['stamped']!r}); episodes a board "

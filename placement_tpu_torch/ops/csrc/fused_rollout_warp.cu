@@ -70,9 +70,11 @@
 // (centroid_wl_int) and the allocation (allocate_net) take a fixed number
 // of warp steps whatever the nets, through a per-warp shared scratch:
 // per-net sums and bin counts are shared-memory atomics of integers (exact
-// in any order), the components' keys, spaces and bin edges are read back
-// into registers, and the crossing pairs of the routed segments are dealt
-// evenly over the lanes from shared memory.
+// in any order), the allocation holds a component and a position in the
+// order by free space a lane (its running sums and water-fill are scans
+// over those lanes; a rank finds its bin and its position by a 3-step
+// search of a shared table), and the crossing pairs of the routed
+// segments are dealt evenly over the lanes from shared memory.
 // The centroid reward has a third instantiation, the wide one (T_WIDE), for
 // boards of many components: the web app's largest, 40 components of up to
 // 5 x 5 cells with 100 pins on a 30 x 30 grid. It keeps the default one's
@@ -1113,36 +1115,47 @@ __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
 // ---- in-kernel instance generator (generate) -----------------------------
 
 // A warp's shared scratch of allocate_net: per component, and per
-// position in the order by free space, the values every lane reads back.
+// position in the order by free space, the values the lanes read back.
 struct AllocScratch {
-  alignas(16) int key[MAX_C];     // component c: its sort key
-  alignas(16) int space[MAX_C];   // position c: its component's free space
-  alignas(16) float edge[MAX_C];  // position c: its bin's upper edge
-  alignas(16) int bins[MAX_C];    // position c: the ranks its bin drew
-  alignas(16) int order[MAX_C];   // position c: its component
+  union {
+    alignas(16) uint16_t key[MAX_C];  // component c: its sort key, 0 past C
+    int ends[MAX_C];  // then position q: where its ranks end, M past C
+  };
+  float edge[MAX_C];              // position q: its bin's upper edge
+  int space[MAX_C];               // position q: its component's free space
+  int bins[MAX_C];                // position q: the ranks its bin drew
+  int order[MAX_C];               // position q: its component
 };
 __shared__ AllocScratch s_alloc[WARPS];
+static_assert(MAX_C == 8, "the keys in one vector read, 3-step searches");
+static_assert(MAX_PPC * (MAX_C + 1) + MAX_C < 0x8000,
+              "a sort key and the key + 1 it is compared by in 15 bits");
 // extra_pins<true>'s count of the draws a net takes
 __shared__ int s_net_draws[WARPS][MAX_N];
 
-// The MAX_C entries of a shared table, in registers.
-template <class T>
-__device__ __forceinline__ void load_c(const T* from, T (&to)[MAX_C]) {
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) to[c] = from[c];
+// The count of the leading entries of t[0..MAX_C) (non-decreasing, the last
+// never counted) that `below` holds, by a 3-step search: at most MAX_C - 1.
+template <class T, class F>
+__device__ __forceinline__ int count_leading(const T* t, F below) {
+  int b = below(t[3]) ? 4 : 0;
+  b += below(t[b + 1]) ? 2 : 0;
+  return b + (below(t[b]) ? 1 : 0);
 }
 
 // One net's pin -> component allocation, drawing call `call`: writes the
 // component of each of the net's M ranks to comp_of[0..M) and, when the net
-// is open, updates `space` (lane c: component c's free cells). Rank j is on
-// lane j % 32, slot j / 32; MAXM, the instantiation's most ranks a net,
-// leaves out slot 1 where it is 32 or fewer. The values of the C <= MAX_C
-// components (their keys, then by position their free space, bin edges and
-// bins' counts) go through shared memory, and every lane works out the
-// sort, the cumulative weights, the water-fill and the slots from them in
-// registers. The cumulative weights are integer prefix sums (small
-// integers, exact in f32 in any order); each bin's edge is one division on
-// its own lane; the bins are counted by shared-memory atomics.
+// is open, updates `space` (lane c: component c's free cells). Component c
+// and position q (in the order by free space) are on lanes c and q < C <=
+// MAX_C; rank j is on lane j % 32, slot j / 32, and MAXM, the
+// instantiation's most ranks a net, leaves out slot 1 where it is 32 or
+// fewer. No lane holds a table of the C components: a component's position
+// is its count of greater keys (two 16-bit keys a word, one vector read of
+// shared memory); the running sums and the water-fill are scans over the
+// position lanes (integer sums, exact in f32 in any order), each bin's edge
+// one division on its position's lane; a rank's bin is its count of lower
+// edges and its position the count of positions whose ranks end at or
+// before it, each a search of a non-decreasing shared table; the bins are
+// counted by shared-memory atomics.
 template <int MAXM>
 __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
                              uint32_t call, int m, int k0, bool open,
@@ -1150,91 +1163,69 @@ __device__ void allocate_net(const FusedRolloutParams& p, const Rng& rng,
   AllocScratch& sh = s_alloc[threadIdx.x >> 5];
   const int C = p.components, M = p.pins_per_net;
   const bool cl = lane < C;
-  // components by free space, descending: the keys space*(C+1)+(C-1-i)
-  // are unique, so a component's position is the count of greater keys
+  // components by free space, descending: the keys space*(C+1)+(C-1-c)
+  // are unique, so a component's position is the count of greater keys.
+  // Two keys a word: each 16-bit half + 0x8000 - (key + 1) keeps bit 15
+  // exactly where that half's key is greater (keys below 2^15: no half
+  // borrows from the next).
   const int key = space * (C + 1) + (C - 1 - lane);
-  if (cl) sh.key[lane] = key;
-  __syncwarp();
-  int v[MAX_C];
-  load_c(sh.key, v);
-  int pos = 0;
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) pos += c < C && v[c] > key;
-  if (cl) {
-    sh.order[pos] = lane;
-    sh.space[pos] = space;
+  if (lane < MAX_C) {
+    sh.key[lane] = (uint16_t)(cl ? key : 0);
     sh.bins[lane] = 0;
   }
   __syncwarp();
-  // by position: free space s, its running sum; the first k positions
-  // share the ranks
-  int s[MAX_C];
-  load_c(sh.space, s);
-  int run = 0, not_enough = 0;
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) {
-    s[c] = c < C ? s[c] : 0;
-    run += s[c];
-    not_enough += c < C && run < m;
+  const uint4 kw = *reinterpret_cast<const uint4*>(sh.key);
+  const uint32_t hi = 0x80008000u, d = hi - (uint32_t)(key + 1) * 0x10001u;
+  const int pos = __popc(((kw.x + d) & hi) | (((kw.y + d) & hi) >> 1) |
+                         (((kw.z + d) & hi) >> 2) | (((kw.w + d) & hi) >> 3));
+  if (cl) {
+    sh.order[pos] = lane;
+    sh.space[pos] = space;
   }
-  const int k = max(k0, min(not_enough + 1, C));
-  // lane c: position c's cumulative weight (of positions 0..min(c, k - 1))
-  // over the total, its bin's upper edge (the running sums once more:
-  // selected by value, not kept in an array indexed at run time)
-  const int mine = min(lane, k - 1);
-  int cw = 0, tot = 0;
-  run = 0;
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) {
-    run += s[c];
-    cw = c == mine ? run : cw;
-    tot = c == k - 1 ? run : tot;
-  }
-  if (lane < MAX_C) sh.edge[lane] = (float)cw / fmaxf((float)tot, 1e-9f);
   __syncwarp();
-  float edge[MAX_C];
-  load_c(sh.edge, edge);
-  // lane j: rank j's uniform and bin (wide: rank j + 32's too)
+  // lane q: position q's free space and its running sum; the first k
+  // positions share the ranks
+  const int s = cl ? sh.space[lane] : 0;
+  const int run = warp_scan(s, lane, MAX_C);
+  const int not_enough = __popc(__ballot_sync(FULL, cl && run < m));
+  const int k = max(k0, min(not_enough + 1, C));
+  // position q's cumulative weight (of positions 0..min(q, k - 1)) over the
+  // total, its bin's upper edge; 2 (above every uniform) past C - 1
+  const int tot = __shfl_sync(FULL, run, k - 1);
+  const int cw = lane < k ? run : tot;
+  if (lane < MAX_C)
+    sh.edge[lane] =
+        lane < C - 1 ? (float)cw / fmaxf((float)tot, 1e-9f) : 2.0f;
+  __syncwarp();
+  // rank j: its uniform and bin, the count of edges below it
   const bool wide = MAXM > 32 && M > 32;
+  const auto bin_of = [&](float u) {
+    return count_leading(sh.edge, [u](float e) { return u > e; });
+  };
   const float ut = rng.uniform(call, M, lane);
-  int bin = 0;
-#pragma unroll
-  for (int c = 0; c < MAX_C - 1; ++c) bin += c < C - 1 && ut > edge[c];
-  if (lane < m) atomicAdd(&sh.bins[bin], 1);
+  if (lane < m) atomicAdd(&sh.bins[bin_of(ut)], 1);
   if (wide) {
     const float ut2 = rng.uniform(call, M, lane + 32);
-    int bin2 = 0;
-#pragma unroll
-    for (int c = 0; c < MAX_C - 1; ++c) bin2 += c < C - 1 && ut2 > edge[c];
-    if (lane + 32 < m) atomicAdd(&sh.bins[bin2], 1);
+    if (lane + 32 < m) atomicAdd(&sh.bins[bin_of(ut2)], 1);
   }
   __syncwarp();
-  // the positions' counts, then the in-order water-fill of the residue
-  // into the remaining space, and where each position's ranks end
-  int cnt[MAX_C];
-  load_c(sh.bins, cnt);
-  int resid = m;
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) {
-    cnt[c] = c < C ? min(cnt[c], s[c]) : 0;
-    resid -= cnt[c];
-  }
-  int before = 0, left = 0, bound[MAX_C];
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) {
-    const int free_c = s[c] - cnt[c];
-    cnt[c] += min(max(resid - before, 0), free_c);
-    before += free_c;
-    bound[c] = (c > 0 ? bound[c - 1] : 0) + cnt[c];
-    left = c == pos ? s[c] - cnt[c] : left;
-  }
-  // the position that takes rank j: the count of positions whose ranks
-  // end at or before j
+  // lane q: the position's count (its bin's ranks, at most its space),
+  // then the in-order water-fill of the residue (>= 0) into the space
+  // left: positions 0..q take min(residue, their space left) of it, so
+  // position q's ranks end at min(counts to q + residue, run)
+  const int cnt = cl ? min(sh.bins[lane], s) : 0;
+  const int resid = m - warp_sum(cnt);
+  const int upto = warp_scan(cnt, lane, MAX_C);
+  const int end = min(upto + resid, run);
+  const int start = min(upto - cnt + resid, run - s);
+  if (lane < MAX_C) sh.ends[lane] = cl ? end : M;
+  const int left = __shfl_sync(FULL, s - (end - start), pos);
+  __syncwarp();
+  // rank j's position: the count of positions whose ranks end at or
+  // before j (past C - 1, the last position)
   const auto position = [&](int j) {
-    int slot = 0;
-#pragma unroll
-    for (int c = 0; c < MAX_C; ++c) slot += c < C && j >= bound[c];
-    return sh.order[min(slot, C - 1)];
+    const int q = count_leading(sh.ends, [j](int e) { return j >= e; });
+    return sh.order[min(q, C - 1)];
   };
   if (lane < M) comp_of[lane] = position(lane);
   if (wide && lane + 32 < M) comp_of[lane + 32] = position(lane + 32);

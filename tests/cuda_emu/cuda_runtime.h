@@ -77,6 +77,9 @@ struct alignas(16) float4 {
 struct alignas(16) int4 {
   int x, y, z, w;
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};

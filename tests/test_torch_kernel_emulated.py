@@ -157,6 +157,20 @@ GENERAL_CASES = {
     "web_nets10_beam4": ("rectangle_pin", {
         **EDGES["web_nets10"][1], "reward_type": "beam",
         "reward_beam_width": 4}),
+    # the web app's 10 nets of 2..4 pins on 8 components: every position
+    # lane of the allocation taken, after the extra pins
+    "web_nets10_c8": ("rectangle_pin", {
+        **EDGES["web_nets10"][1], "min_num_components": 8,
+        "max_num_components": 8}),
+    # one net of 36 pins on 3-4 components of 6 cells: the net overflows
+    # every component (not_enough, the water-fill's residue), and its ranks
+    # 32.. take the second lane slot
+    "net1_ppn36_overflow": ("rectangle_pin", {
+        **_ROOMY, "min_component_h": 2, "max_component_h": 2,
+        "min_component_w": 3, "max_component_w": 3, "min_num_components": 3,
+        "max_num_components": 4, "min_num_nets": 1, "max_num_nets": 1,
+        "min_num_pins_per_net": 36, "max_num_pins_per_net": 36,
+        "pin_spread": 0}),
     "rect_1x144": ("rectangle", {
         "height": 1, "width": 144, "min_component_h": 1,
         "max_component_h": 1, "min_component_w": 1, "max_component_w": 3,

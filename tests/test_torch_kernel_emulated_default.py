@@ -49,6 +49,13 @@ CASES = {
         "min_component_h": 1, "max_component_h": 2, "min_component_w": 1,
         "max_component_w": 2, "min_num_components": 2,
         "max_num_components": 5, "pin_spread": 0}),
+    # a net count that varies: the closed nets allocate no rank (m = 0)
+    # and leave the components' space alone
+    "nets_1_8": ("rectangle_pin", {"min_num_nets": 1, "max_num_nets": 8}),
+    # one component: one position lane, k = 1, every rank on position 0
+    # (two nets of 6 pins overflow its 4 cells)
+    "one_component": ("rectangle_pin", {
+        "min_num_components": 1, "max_num_components": 1}),
     # "both": the centroid route beside the beam route, 5 nets a turn
     "nets8_ppn6_both": ("rectangle_pin", {
         **_ROOMY, "min_num_nets": 8, "max_num_nets": 8,
