@@ -77,6 +77,12 @@ Phases (any failure raises and the exit code is not 0):
      of the centroid kernel: kernel == plain at 4096 boards on a 10-step
      chunk from mid-run boards (board rewards within 5e-4), timed with its
      bound, and the matrix tool's fused row on it
+  5d. [wide beam]: the same boards on the wide instantiations of the beam
+     kernel (width 4) and of the "both" kernel (widths 2 and 4): three
+     chained chunks at 4096 boards from zero boards, each held to
+     ``portbench/reference_wide_beam.py`` (leaves and done counts equal,
+     beam rewards equal, "both" rewards within 5e-4), timed with the
+     bound, beside the centroid kernel's time on the same boards
   6. main path 1, timed; the kernel's launch count must equal the calls
   7. main path 2, the matrix; launch counts set to 0 before and read after:
      every specialisation must have launched; the square and rect rows'
@@ -389,7 +395,10 @@ def phase_build():
     pins = [(k, tier, _row(KERNELS[k][0])[0])
             for k in ("centroid", "beam", "both")
             for tier in ("default", "general")]
-    pins.append(("centroid", "wide", _row("web_max_pooled")[0]))
+    web_max = _row("web_max_pooled")[0]
+    pins += [("centroid", "wide", web_max)] + [
+        (k, "wide", web_max.replace(reward_type=k, reward_beam_width=4))
+        for k in ("beam", "both")]
     for k, tier, params in pins:
         name = k if tier == "default" else f"{k}_{tier}"
         got = usage.get(name, {})
@@ -688,6 +697,95 @@ def phase_wide():
     return err, ms, plain_ms, bound_ms, bound_by, row["launches"]
 
 
+#: [wide beam]: the logical block of rows 2w and 3w, the web_max.beam
+#: cell's
+WIDE_BEAM_BLOCK = 128
+
+
+def _reference_params(params):
+    """``params`` as ``portbench/reference.py``'s ``Params``."""
+    import dataclasses
+    from portbench import reference
+    return reference.Params(**{
+        f.name: getattr(params, f.name)
+        for f in dataclasses.fields(reference.Params)
+        if f.name != "variant"}, variant=reference.Variant(
+            int(params.variant)))
+
+
+def _wide_beam_rows():
+    """label -> params of [wide beam]'s rows: web_max (bench_matrix's
+    ``web_max_pooled``) under the beam reward at width 4 and "both" at
+    widths 2 and 4."""
+    params = _row("web_max_pooled")[0]
+    return {f"{k}{bw}": params.replace(reward_type=k, reward_beam_width=bw)
+            for k, bw in (("beam", 4), ("both", 2), ("both", 4))}
+
+
+def phase_wide_beam():
+    """[wide beam] rows 2w and 3w: web_max on the wide instantiations of
+    the beam and "both" kernels at ``BATCH`` boards, logical block
+    ``WIDE_BEAM_BLOCK``: three chained chunks from zero boards, each held
+    to ``portbench/reference_wide_beam.py`` (leaves and done counts equal;
+    beam rewards equal, "both" rewards within 5e-4, where the centroid
+    route's terms are added in another order); then the kernel's ms per
+    chunk and its bound, beside the centroid kernel's on the same boards.
+    Returns label -> (err, ms, reference ms, bound ms, bound_by,
+    launches)."""
+    import torch
+    from placement_tpu_torch.ops import fused_rollout as fr
+    from portbench import reference_wide_beam, workmodel
+    out = {}
+    for label, params in _wide_beam_rows().items():
+        _check(fr.kernel_tier(params) == "wide", f"{label}: not the wide "
+                                                 "tier")
+        ref = _reference_params(params)
+        fn = fr.make_fused_rollout(params, BATCH, STEPS,
+                                   block=WIDE_BEAM_BLOCK, device="cuda")
+        leaves = fr.zero_leaves(params, BATCH, "cuda")
+        err, ref_ms = 0.0, []
+        for seed in (1, 2, 3):
+            got, got_r, got_d = fn.per_board(leaves, seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, want_r, want_d = reference_wide_beam.rollout_chunk(
+                ref, leaves, seed, STEPS, WIDE_BEAM_BLOCK)
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            bad = [k for k in fr._LEAVES if not torch.equal(got[k], want[k])]
+            gap = float((got_r - want_r).abs().max())
+            err = max(err, gap)
+            print(f"[wide beam] web_max {label}: {BATCH} boards, block "
+                  f"{WIDE_BEAM_BLOCK}, seed {seed}: leaves differing {bad}, "
+                  f"done counts equal {torch.equal(got_d, want_d)}, max "
+                  f"|board reward diff| {gap!r}, {int(got_d.sum())} "
+                  f"episodes; reference_wide_beam {ref_ms[-1]!r} ms",
+                  flush=True)
+            _check(not bad, f"web_max {label}: kernel leaves differ from "
+                            f"the reference: {bad}")
+            _check(torch.equal(got_d, want_d),
+                   f"web_max {label}: done counts differ")
+            _check(gap == 0.0 if params.reward_type == "beam" else
+                   gap <= 5e-4, f"web_max {label}: board rewards differ")
+            leaves = got
+        ms = _kernel_ms(fn, leaves, 10, TIMED_CHUNKS)
+        centroid = fr.make_fused_rollout(params.replace(
+            reward_type="centroid"), BATCH, STEPS, block=WIDE_BEAM_BLOCK,
+            device="cuda")
+        c_ms = _kernel_ms(centroid, leaves, 10, TIMED_CHUNKS)
+        bound_ms, bound_by, ops, nbytes = workmodel.chunk_bound(
+            ref, BATCH, STEPS, int(got_d.sum()), leaves)
+        print(f"[wide beam] web_max {label}: kernel {ms!r} ms per {STEPS}-"
+              f"step chunk ({fn.kernel} kernel, {fn.tier} instantiation), "
+              f"{BATCH * STEPS / ms * 1e3!r} env-steps/s; the centroid "
+              f"kernel on the same boards {c_ms!r} ms; bound {bound_ms!r} "
+              f"ms by {bound_by} ({ops!r} operations, {nbytes} bytes), "
+              f"share {bound_ms / ms!r}", flush=True)
+        out[label] = (err, ms, min(ref_ms), bound_ms, bound_by,
+                      fn.launches)
+    return out
+
+
 def phase_batch_scaling(params, block):
     """The kernel's ms per chunk on ``params`` at several batches (from
     mid-run boards, after a warm-up): flat means latency-bound, in
@@ -746,7 +844,7 @@ PHASE_ROWS = ("web_nets10", "nets24_both/centroid", "nets24_both",
               "wide_rect", "tall_square", "wide_square", "pin_centroid",
               "pin_beam", "pin_both", "rect", "square", "varpin_web",
               "pin_centroid/general", "pin_beam/general", "rect/general",
-              "web_max", "varpin_parity")
+              "web_max", "varpin_parity", "web_max_beam")
 
 _PROF = r"""
 __shared__ unsigned long long s_phase_clocks[8][13];
@@ -903,6 +1001,8 @@ def _phase_row(name):
         block = VARPIN[base]
     elif base == "web_max":      # the wide instantiation, at the cell's block
         params, block = _row("web_max_pooled")[0], BLOCK
+    elif base == "web_max_beam":  # the wide beam kernel, as web_max.beam
+        params, block = _wide_beam_rows()["beam4"], WIDE_BEAM_BLOCK
     else:
         params, block = _row(base)
     if variant in ("centroid", "beam", "both"):
@@ -2962,6 +3062,7 @@ def main():
     envelope = phase_envelope()
     print(f"[envelope] {time.perf_counter() - t_env!r} s for the phase")
     wide = phase_wide()
+    wide_beam = phase_wide_beam()
     hw = json.loads(HW_GOLDENS.read_text())
     launches_1, _ = phase_main_path(_row("pin_centroid")[0],
                                     hw["centroid"]["mean_reward"])
@@ -3095,6 +3196,28 @@ def main():
         "bound_by": bound_by,
         "library_ms": None,
     })
+    # the wide instantiations of the beam and "both" kernels, on web_max at
+    # width 4 (the "both" error the larger of widths 2 and 4)
+    for k in ("beam", "both"):
+        err, ms, plain_ms, bound_ms, bound_by, _ = wide_beam[f"{k}4"]
+        entries.append({
+            "name": f"fused_rollout_{k}_wide",
+            "route": "cuda",
+            "source": SOURCES[k],
+            "replaces": f"placement_tpu/ops/fused_rollout.py:866 "
+                        f"({KERNELS[k][-1]}; components > 8, pins > 48 or "
+                        f"pins per component > 16, outside the JAX "
+                        f"kernel's envelope)",
+            "launches": sum(v[-1] for key, v in wide_beam.items()
+                            if key.startswith(k)),
+            "max_abs_err": max(v[0] for key, v in wide_beam.items()
+                               if key.startswith(k)),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
     # the varying-pins branch on main path 3's config (the centroid
     # kernel); the error is the larger of both configs'
     err, ms, plain_ms, bound_ms, bound_by = results["varpin_web"]

@@ -36,15 +36,25 @@ constexpr int MAX_BW = 4;     // beam width
 // 32), at most DEFAULT_N nets of DEFAULT_M pins.
 constexpr int DEFAULT_N = 8;
 constexpr int DEFAULT_M = 16;
-// The wide instantiation of the centroid pin kernel, for boards of many
-// components (the web app's largest: 40 components, 100 pins, 5 x 5
-// footprints): the default one's grid row per lane, two components a lane,
-// four pin slots a lane, and the per-net tables of the general one.
+// The wide instantiation of the pin kernels, for boards of many components
+// (the web app's largest: 40 components, 100 pins, 5 x 5 footprints): the
+// default one's grid row per lane, two components a lane, four pin slots a
+// lane, and the per-net tables of the general one.
 constexpr int WIDE_C = 64;    // components with pins
 constexpr int WIDE_N = 24;    // nets
 constexpr int WIDE_M = 48;    // pins per net
 constexpr int WIDE_P = 128;   // pin-table length
 constexpr int WIDE_PPC = 25;  // pins (cells) per component
+// The wide tier's beam route lays the board's nets out on its four pin
+// slots, two at a time: up to floor(32 / M) nets of M <= 32 pins a slot,
+// two slots a net of more.
+constexpr int WIDE_BEAM_SLOTS = 4;
+
+// The lane slots that N nets of up to M >= 1 pins take in the beam route's
+// layouts (fused_rollout_warp.cu, beam_nets).
+__host__ __device__ constexpr int beam_slots(int N, int M) {
+  return M > 32 ? N * ((M + 31) / 32) : (N + 32 / M - 1) / (32 / M);
+}
 
 // The pin kernels' instantiations (FusedRolloutParams::tier):
 // fused_rollout_warp_kernel<K, TIER>.

@@ -684,14 +684,18 @@ void launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
 
 // Whether the instantiation that p.tier picks holds p's board and, for
 // the pin kernels, its nets. The general square holds a board of at most
-// SEG words; the wide tier is the centroid kernel's alone, and its tables
-// are held to its capacities here.
+// SEG words; the wide tier is the pin kernels' alone, and its tables and
+// beam route are held to its capacities here.
 bool fits(const FusedRolloutParams& p) {
   const bool rows = p.height <= MAX_H && p.width <= MAX_W;
   if (p.tier == T_WIDE)
-    return p.kernel == K_CENTROID && rows && p.components <= WIDE_C &&
-           p.nets <= WIDE_N && p.pins_per_net <= WIDE_M &&
-           p.pins <= WIDE_P && p.pins_per_component <= WIDE_PPC;
+    return p.kernel <= K_BOTH && rows && p.components <= WIDE_C &&
+           p.nets <= WIDE_N && p.pins_per_net >= 1 &&
+           p.pins_per_net <= WIDE_M && p.pins <= WIDE_P &&
+           p.pins_per_component <= WIDE_PPC &&
+           (p.kernel == K_CENTROID ||
+            (p.beam_width <= MAX_BW &&
+             beam_slots(p.nets, p.pins_per_net) <= WIDE_BEAM_SLOTS));
   const bool general = p.tier == T_GENERAL;
   if (general && p.kernel == K_SQUARE && p.height * p.row_stride > 32 * SEG)
     return false;
@@ -715,6 +719,7 @@ int fused_rollout_capacity(const char* what) {
   if (!strcmp(what, "wide.pins_per_net")) return WIDE_M;
   if (!strcmp(what, "wide.pins")) return WIDE_P;
   if (!strcmp(what, "wide.pins_per_component")) return WIDE_PPC;
+  if (!strcmp(what, "wide.beam_slots")) return WIDE_BEAM_SLOTS;
   if (!strcmp(what, "height")) return MAX_H;
   if (!strcmp(what, "width")) return MAX_W;
   if (!strcmp(what, "area")) return MAX_AREA_LONG;

@@ -17,9 +17,9 @@
 // ~4.2k for the centroid route (108 segment pairs on different nets at ~35
 // operations each, plus the per-pin terms); for the beam route at width bw,
 // per net and round, bw^2 nearest-pin scans of M pins and a selection of bw
-// of the bw^2 candidates, then 75 segment pairs. chip_smoke.py's
-// _chunk_bound counts them for a run's own boards; the integer operations
-// at the card's integer issue rate bind. The leaves are ~1.7 KB per board,
+// of the bw^2 candidates, then 75 segment pairs. portbench/workmodel.py's
+// chunk_bound counts them for a run's own boards; the integer operations at
+// the card's integer issue rate bind. The leaves are ~1.7 KB per board,
 // read and written once: ~14 MB, ~4 us at 3.35 TB/s.
 //
 // What the design does about it. A one-thread-per-board kernel keeps each
@@ -75,17 +75,21 @@
 // over those lanes; a rank finds its bin and its position by a 3-step
 // search of a shared table), and the crossing pairs of the routed
 // segments are dealt evenly over the lanes from shared memory.
-// The centroid reward has a third instantiation, the wide one (T_WIDE), for
-// boards of many components: the web app's largest, 40 components of up to
-// 5 x 5 cells with 100 pins on a 30 x 30 grid. It keeps the default one's
-// grid row a lane and takes the general one's per-net tables, and holds two
+// Each reward has a third instantiation, the wide one (T_WIDE), for boards
+// of many components: the web app's largest, 40 components of up to 5 x 5
+// cells with 100 pins on a 30 x 30 grid. It keeps the default one's grid
+// row a lane and takes the general one's per-net tables, and holds two
 // components a lane (WIDE_C = 64) and four pin slots a lane (WIDE_P = 128).
 // No table of C entries is held in registers: the allocation
 // (allocate_net_wide) keeps its per-component and per-position values in
 // shared memory and works on them as scans over the two component slots;
-// a component's 25 cells are ordered one component a warp pass. Its route
-// scratch and its generator's tables share one per-warp slice (WideScratch),
-// since an episode's route ends before the next instance is generated.
+// a component's 25 cells are ordered one component a warp pass. Its beam
+// route (beam_wl_int_wide) takes the board's nets in two halves through
+// the general one's two-slot beam_nets, so it holds what four slots hold
+// (WIDE_BEAM_SLOTS): N <= 4 floor(32 / M) nets of M <= 16 pins, 4 of 17-32,
+// 2 of 33-48. Its route scratch (the beam route's segments included) and
+// its generator's tables share one per-warp slice (WideScratch), since an
+// episode's route ends before the next instance is generated.
 // Every f32 sum whose order the plain version fixes is still taken in that
 // order (the wirelength over pins, or over nets and path positions, the
 // allocation's weights (as the integer sums they equal), the softmax total
@@ -217,8 +221,8 @@ struct WideAllocScratch {
   int ends[WIDE_M + 1];            // rank j: the positions ending at j
 };
 
-// A warp's shared slice in the wide tier: the centroid route's scratch at
-// an episode's end, then (in the same bytes) the generator's tables.
+// A warp's shared slice in the wide tier: the routes' scratch at an
+// episode's end, then (in the same bytes) the generator's tables.
 struct WideScratch {
   union {
     CentroidScratchT<WIDE_N, WIDE_P> route;
@@ -426,20 +430,22 @@ __device__ __forceinline__ float seg_coord(int s, int i) {
 }
 
 // The crossings of a beam route's segments on different nets (the same on
-// every lane). segs[n * M + t] is net n's segment t, two words a lane (N *
-// M is the pin table's length, at most MAX_P), NO_SEG from t = lim - 1 on:
+// every lane). segs[n * M + t] is net n's segment t, PS words a lane (N * M
+// is the pin table's length, at most 32 PS), NO_SEG from t = lim - 1 on:
 // NO_SEG words part the nets. The routed ones are unpacked in pin order into
 // the centroid route's scratch (its route is done), tagged (1, the NO_SEG
 // words before it): two share a net exactly when they share that count.
 // Their pairs are dealt over the lanes as centroid_wl_int deals them.
+template <int PS>
 __device__ int beam_crossings(const int* segs, int N, int M, int lane) {
-  static_assert(MAX_P <= 64, "two words a lane");
+  static_assert(PS > 2 ? WIDE_P <= 32 * PS : MAX_P <= 32 * PS,
+                "PS words a lane");
   if (N < 2) return 0;
-  auto& cs = centroid_scratch<2>();
+  auto& cs = centroid_scratch<PS>();
   __syncwarp();  // the route's writes are done
   int V = 0;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
+  for (int r = 0; r < PS; ++r) {
     const int q = lane + 32 * r, sg = q < N * M ? segs[q] : NO_SEG;
     const uint32_t R = __ballot_sync(FULL, sg != NO_SEG);
     const int i = V + __popc(R & ((1u << lane) - 1u));
@@ -675,7 +681,7 @@ __device__ void beam_wl_int(const FusedRolloutParams& p,
     if (real) segs[n * M + j] = sv ? pack_seg(rx, ry, rx2, ry2) : NO_SEG;
   }
   wl_out = wl;
-  ints_out = beam_crossings(segs, N, M, lane);
+  ints_out = beam_crossings<2>(segs, N, M, lane);
 }
 
 // ---- the general instantiation's beam route (nets of up to 48 pins) ------
@@ -790,10 +796,11 @@ __device__ __forceinline__ uint32_t zero_bytes(uint32_t v) {
   return ~(t | v | 0x7f7f7f7fu) >> 7;
 }
 
-// The beam routes of every net of the board (see beam_wl_int_general):
+// The beam routes of the board's nets 0..N-1 (see beam_wl_int_general):
 // writes each net's segments to segs[n * M + t] and returns the
-// wirelength. `pin` holds a pin's net + 1 (0 where it is not routed) and
-// its coordinates, a byte each; lane n: net n's pin count and first pin.
+// wirelength `wl` plus theirs, added in net order. `pin` holds a pin's
+// net + 1 (0 where it is not routed) and its coordinates, a byte each;
+// lane n: net n's pin count and first pin.
 //
 // A net's beams are held on its lanes: cost, last pin (a byte each of
 // `curs`) and path rank (2 bits each of `ranks`), uniform over the net;
@@ -809,9 +816,10 @@ __device__ __forceinline__ uint32_t zero_bytes(uint32_t v) {
 // unique already) and names the winner's lane. A new beam's path and
 // visited pins are its parent's bytes, permuted.
 template <int MODE>
-__device__ float beam_nets(const FusedRolloutParams& p, const int (&pin)[2],
-                           int cnt_l, int start_l, int lane, int* segs) {
-  const int N = p.nets, M = p.pins_per_net, bw = p.beam_width;
+__device__ float beam_nets(const FusedRolloutParams& p, int N,
+                           const int (&pin)[2], int cnt_l, int start_l,
+                           int lane, int* segs, float wl) {
+  const int M = p.pins_per_net, bw = p.beam_width;
   // lanes a segment, segments a slot, this lane's segment and first lane
   const int LM = MODE == SEGMENTS ? M : 32, G = 32 / LM, g = lane / LM;
   const int base = g * LM, jl = lane - base;
@@ -1046,7 +1054,6 @@ __device__ float beam_nets(const FusedRolloutParams& p, const int (&pin)[2],
   }
   // the wirelength, nets outer, positions inner (adding +0 past a net's
   // last segment is exact)
-  float wl = 0.f;
   for (int u = 0, gu = 0; u < N; ++u, gu = gu + 1 == G ? 0 : gu + 1) {
     for (int t = 0; t < rounds; ++t) {  // net u: slot u / G, segment gu
       const bool hi = MODE == SPAN ? t >= 32 : u >= G;
@@ -1083,24 +1090,97 @@ __device__ void beam_wl_int_general(const FusedRolloutParams& p,
   const int start_l = warp_scan(cnt_l, lane, N) - cnt_l;
   __syncwarp();  // the generator's reads of the shared slice are done
   const float wl =
-      M > 32   ? beam_nets<SPAN>(p, pin, cnt_l, start_l, lane, segs)
-      : M > 16 ? beam_nets<SLOTS>(p, pin, cnt_l, start_l, lane, segs)
-               : beam_nets<SEGMENTS>(p, pin, cnt_l, start_l, lane, segs);
+      M > 32   ? beam_nets<SPAN>(p, N, pin, cnt_l, start_l, lane, segs, 0.f)
+      : M > 16 ? beam_nets<SLOTS>(p, N, pin, cnt_l, start_l, lane, segs, 0.f)
+               : beam_nets<SEGMENTS>(p, N, pin, cnt_l, start_l, lane, segs,
+                                     0.f);
   wl_out = wl;
-  ints_out = beam_crossings(segs, N, M, lane);
+  ints_out = beam_crossings<2>(segs, N, M, lane);
+}
+
+// beam_wl_int for the wide tier's four pin slots: the same search, tie rules
+// and sums as beam_wl_int_general, the board's nets in two halves of H (2G
+// nets of M <= 16 pins, 2 of 17-32, 1 of more), each through beam_nets on
+// two lane slots: nets 0..H-1, then H..2H-1, whose pins lie within 64 table
+// positions from the half's first pin. A half's pins are shifted down to
+// slots 0 and 1 and its nets renumbered from 0; the wirelength carries on
+// from one half to the next (nets outer, as the plain version adds it).
+// It holds N <= 2H nets (beam_slots(N, M) <= WIDE_BEAM_SLOTS; the host and
+// fits() refuse more). The segments, N * M <= 128 words, go where the
+// centroid route keeps its terms: neither this route nor its crossing count
+// (which fills seg and tag) reads those, and "both"'s centroid route has
+// added them up by then. Then the crossings of all of them are counted.
+__device__ void beam_wl_int_wide(const FusedRolloutParams& p,
+                                 const WarpBoard<T_WIDE>& b, int lane,
+                                 float& wl_out, int& ints_out) {
+  const int N = p.nets, M = p.pins_per_net, P = p.pins;
+  int* segs = reinterpret_cast<int*>(s_wide[threadIdx.x >> 5].route.term);
+  // beam_wl_int_general's pin words and per-net counts, on four slots
+  // (kept apart: a shared template reorders the general instantiations' code)
+  int pin[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int q = lane + 32 * s, n = b.pnet[s];
+    const bool on = q < P && q < b.npin && n >= 0 && n < N;
+    pin[s] = on ? (n + 1) << 16 | (b.pax[s] & 0xff) << 8 | (b.pay[s] & 0xff)
+                : 0;
+  }
+  int cnt_l = 0;
+  for (int n = 0; n < N; ++n) {
+    const int c = warp_sum(((pin[0] >> 16) == n + 1) +
+                           ((pin[1] >> 16) == n + 1) +
+                           ((pin[2] >> 16) == n + 1) +
+                           ((pin[3] >> 16) == n + 1));
+    if (lane == n) cnt_l = c;
+  }
+  const int start_l = warp_scan(cnt_l, lane, N) - cnt_l;
+  __syncwarp();  // the last reads of the shared slice are done
+  const int H = M > 32 ? 1 : 2 * (32 / M);
+  float wl = 0.f;
+  for (int n0 = 0; n0 < N; n0 += H) {
+    // table positions off + lane and off + 32 + lane, renumbered from n0
+    const int off = __shfl_sync(FULL, start_l, n0);
+    const int src = (off + lane) & 31, at = (off + lane) >> 5;
+    int got[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) got[s] = __shfl_sync(FULL, pin[s], src);
+    int half[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int k = at + s;
+      const int w = k == 0   ? got[0]
+                    : k == 1 ? got[1]
+                    : k == 2 ? got[2]
+                    : k == 3 ? got[3]
+                             : 0;
+      half[s] = (w >> 16) > n0 ? w - (n0 << 16) : 0;
+    }
+    const int cnt_h = __shfl_sync(FULL, cnt_l, (n0 + lane) & 31);
+    const int st_h = __shfl_sync(FULL, start_l, (n0 + lane) & 31) - off;
+    const int nh = min(N - n0, H);
+    int* seg_h = segs + n0 * M;
+    wl = M > 32   ? beam_nets<SPAN>(p, nh, half, cnt_h, st_h, lane, seg_h, wl)
+         : M > 16 ? beam_nets<SLOTS>(p, nh, half, cnt_h, st_h, lane, seg_h,
+                                     wl)
+                  : beam_nets<SEGMENTS>(p, nh, half, cnt_h, st_h, lane, seg_h,
+                                        wl);
+  }
+  wl_out = wl;
+  ints_out = beam_crossings<4>(segs, N, M, lane);
 }
 
 // The routed terminal reward of the kernel's reward type (reward_rows);
-// "both" takes the route with fewer crossings, a tie goes to beam.
+// "both" takes the route with fewer crossings, a tie goes to beam. `segs`
+// is the narrow tiers' allocation table, which their beam routes reuse.
 template <int K, int TIER>
 __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
                                                const WarpBoard<TIER>& b,
                                                int lane, int* segs) {
-  static_assert(K == K_CENTROID || TIER != T_WIDE,
-                "the wide tier routes by centroid alone");
   float wl = 0.f, c_wl = 0.f;
   int ints = 0, c_ints = 0;
   if constexpr (K != K_BEAM) centroid_wl_int(p, b, lane, c_wl, c_ints);
+  if constexpr (K != K_CENTROID && TIER == T_WIDE)
+    beam_wl_int_wide(p, b, lane, wl, ints);
   if constexpr (K != K_CENTROID && TIER == T_GENERAL)
     beam_wl_int_general(p, b, lane, segs, wl, ints);
   if constexpr (K != K_CENTROID && TIER == T_DEFAULT)
@@ -1780,12 +1860,9 @@ int launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
            int batch, int num_steps, int block, uint32_t seed,
            cudaStream_t stream) {
   const int grid = (batch + WARPS - 1) / WARPS;
-  if (p.tier == T_WIDE) {  // the centroid kernel's alone
-    if constexpr (K != K_CENTROID) return (int)cudaErrorInvalidValue;
-    else
-      fused_rollout_warp_kernel<K, T_WIDE><<<grid, BLOCK_THREADS, 0,
-                                             stream>>>(
-          p, in, out, rsum, dcnt, batch, num_steps, block, seed);
+  if (p.tier == T_WIDE) {
+    fused_rollout_warp_kernel<K, T_WIDE><<<grid, BLOCK_THREADS, 0, stream>>>(
+        p, in, out, rsum, dcnt, batch, num_steps, block, seed);
   } else if (p.tier == T_GENERAL) {
     fused_rollout_warp_kernel<K, T_GENERAL><<<grid, BLOCK_THREADS, 0,
                                               stream>>>(
@@ -1808,12 +1885,9 @@ int occupancy() {
 
 template <int K>
 int boards_per_sm(int tier) {
-  if (tier == T_WIDE) {
-    if constexpr (K == K_CENTROID) return occupancy<K, T_WIDE>();
-    else return -1;
-  }
-  return tier == T_GENERAL ? occupancy<K, T_GENERAL>()
-                           : occupancy<K, T_DEFAULT>();
+  return tier == T_WIDE      ? occupancy<K, T_WIDE>()
+         : tier == T_GENERAL ? occupancy<K, T_GENERAL>()
+                             : occupancy<K, T_DEFAULT>();
 }
 
 }  // namespace

@@ -90,12 +90,13 @@ KERNEL_CAPACITY = {
 #: a grid row per lane and the flagship-sized pin tables. A config past
 #: these runs the general instantiation (``needs_general``).
 DEFAULT_CAPACITY = {"height": 32, "width": 32, "nets": 8, "pins_per_net": 16}
-#: What the wide instantiation of the centroid kernel holds (``WIDE_*`` of
+#: What the wide instantiation of the pin kernels holds (``WIDE_*`` of
 #: ``csrc/fused_common.cuh``; the wrapper checks the library reports the
 #: same, as ``wide.<name>``): the default one's grid row per lane, two
-#: components and four pins a lane, the general one's nets. A centroid pin
-#: config within these that the general instantiation cannot hold runs it
-#: (``needs_wide``).
+#: components and four pins a lane, the general one's nets; under the beam
+#: and "both" rewards, nets that its beam route lays out on its four pin
+#: slots (``beam_slots``). A pin config within these that the general
+#: instantiation cannot hold runs it (``needs_wide``).
 WIDE_CAPACITY = {
     "height": 32,
     "width": 32,
@@ -104,6 +105,7 @@ WIDE_CAPACITY = {
     "pins_per_net": 48,
     "pins": 128,
     "pins_per_component": 25,
+    "beam_slots": 4,
 }
 #: The pin kernels' instantiations, in the order of the C enum ``Tier``.
 TIERS = ("default", "general", "wide")
@@ -702,12 +704,35 @@ def _pin_sizes(params: EnvParams) -> Dict[str, int]:
             "pins_per_component": params.max_num_pins_per_component}
 
 
+def beam_slots(nets: int, pins_per_net: int) -> int:
+    """The lane slots that ``nets`` nets of up to ``pins_per_net`` pins
+    take in the beam route's layouts (``beam_slots`` of
+    ``csrc/fused_common.cuh``): floor(32 / M) nets of M <= 32 pins a
+    slot, two slots a net of more."""
+    if pins_per_net > 32:
+        return nets * -(-pins_per_net // 32)
+    return -(-nets // (32 // pins_per_net))
+
+
 def _wide_candidate(params: EnvParams) -> bool:
-    """A centroid pin config whose board fits a grid row per lane: the
-    wide instantiation's kind."""
-    return (params.has_pins and params.reward_type == "centroid"
+    """A pin config, under the centroid reward or a beam of up to
+    ``beam_width`` of ``KERNEL_CAPACITY``, whose board fits a grid row per
+    lane: the wide instantiation's kind."""
+    return (params.has_pins
+            and (params.reward_type == "centroid"
+                 or params.reward_beam_width <= KERNEL_CAPACITY["beam_width"])
             and params.height <= WIDE_CAPACITY["height"]
             and params.width <= WIDE_CAPACITY["width"])
+
+
+def _wide_sizes(params: EnvParams) -> Dict[str, int]:
+    """What the wide instantiation holds ``params`` to: its pin tables
+    and, under the beam and "both" rewards, its beam route's slots."""
+    sizes = _pin_sizes(params)
+    if params.reward_type in ("beam", "both"):
+        sizes["beam_slots"] = beam_slots(params.max_num_nets,
+                                         params.max_num_pins_per_net)
+    return sizes
 
 
 def _over(sizes: Dict[str, int], capacity: Dict[str, int]) -> "list[str]":
@@ -722,13 +747,14 @@ def envelope_report(params: EnvParams) -> "tuple[bool, list]":
     for the beam and "both" rewards), SQUARE / RECT against the board and
     ``components_nopin`` only. A board with one side over 32 is held to the
     area, and breaks that side's limit and the area's where it is over; one
-    with both sides over 32 breaks both sides'. A centroid pin config on
-    sides of up to 32 that those capacities refuse is held to the wide
-    instantiation's (``WIDE_CAPACITY``) instead, and the reasons are its.
-    Returns ``(ok, reasons)``, one reason per violated limit."""
+    with both sides over 32 breaks both sides'. A pin config on sides of
+    up to 32 (and a beam within ``beam_width``) that those capacities
+    refuse is held to the wide instantiation's (``WIDE_CAPACITY``) instead,
+    and the reasons are its. Returns ``(ok, reasons)``, one reason per
+    violated limit."""
     reasons = _general_reasons(params)
     if reasons and _wide_candidate(params):
-        reasons = _over(_pin_sizes(params), WIDE_CAPACITY)
+        reasons = _over(_wide_sizes(params), WIDE_CAPACITY)
     return not reasons, reasons
 
 
@@ -755,9 +781,10 @@ def supports(params: EnvParams) -> bool:
 
 
 def needs_wide(params: EnvParams) -> bool:
-    """Whether ``params`` runs the wide instantiation of the centroid
-    kernel: a centroid pin config on sides of up to 32 with more
-    components, pins or cells a component than the general one holds."""
+    """Whether ``params`` runs the wide instantiation of its pin kernel:
+    a pin config on sides of up to 32 (and a beam within ``beam_width``)
+    with more components, pins or cells a component than the general one
+    holds."""
     return _wide_candidate(params) and bool(_general_reasons(params))
 
 

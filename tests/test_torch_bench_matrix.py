@@ -88,15 +88,16 @@ def test_fused_row_runs_on_cpu_tensors(name, configs, monkeypatch):
 
 def test_web_max_row_raises_naming_the_pooled_engine(configs, monkeypatch):
     """The fused measure refuses a configuration outside the kernels'
-    envelope, naming the pooled engine: the web app's maximum under the
-    beam reward (the wide instantiation is the centroid kernel's alone).
+    envelope, naming the pooled engine: the web app's maximum under a beam
+    wider than the kernels' 4 (the wide instantiations hold up to 4).
     The ``web_max_pooled`` row stays the pooled engine's: ``main`` runs it
     there (on the card: here it raises without one)."""
     params, anchor = configs["web_max_pooled"]
     assert "web_max_pooled" not in bench_matrix.FUSED_ROWS
     with pytest.raises(ValueError, match="pooled engine"):
         bench_matrix.measure("web_max_pooled",
-                             params.replace(reward_type="beam"), anchor, 16,
+                             params.replace(reward_type="beam",
+                                            reward_beam_width=5), anchor, 16,
                              "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -105,7 +106,7 @@ def test_web_max_row_raises_naming_the_pooled_engine(configs, monkeypatch):
 
 def test_web_max_runs_on_the_fused_engine(configs, monkeypatch):
     """The web app's maximum under the centroid reward is inside the
-    envelope (the centroid kernel's wide instantiation): the fused measure
+    envelope (the pin kernels' wide instantiation): the fused measure
     runs it, here on the plain version."""
     monkeypatch.setattr(bench_matrix, "MAX_CALLS", 2)
     params, anchor = configs["web_max_pooled"]

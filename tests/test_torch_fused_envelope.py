@@ -12,8 +12,9 @@ over the warp's lanes, so one side may pass 32 where the area stays within
   * the sweep: wherever JAX's ``envelope_report(params, block=8)`` accepts a
     configuration of a grid over its static limits, the port's ``supports``
     does too; both refuse the over-limit cases; JAX refuses the web app's
-    maximum, which the port takes on the centroid kernel's wide
-    instantiation (and refuses under the beam and "both" rewards);
+    maximum, which the port takes on the pin kernels' wide
+    instantiations (under the beam and "both" rewards, where its beam
+    route's four lane slots hold the nets);
   * the edge configurations (``EDGES``): the port's plain version against
     the JAX kernel under the Pallas TPU interpreter, 16 all-done zero
     boards, logical block 8, two chained chunks, through recorded fixtures
@@ -229,8 +230,7 @@ def test_port_fuses_every_config_jax_fuses(config, reward):
 
 
 #: the web app's maximum sliders: JAX refuses them, the port takes them
-#: on the wide instantiation of the centroid kernel and refuses them under
-#: the beam and "both" rewards
+#: on the wide instantiation of each pin kernel
 WEB_MAX = {"height": 30, "width": 30,
            "min_component_h": 1, "max_component_h": 5,
            "min_component_w": 1, "max_component_w": 5,
@@ -248,19 +248,28 @@ _MANY = {"height": 32, "width": 32, "min_component_h": 2,
 
 
 @pytest.mark.parametrize("config,overrides,limit", [
-    # the beam and "both" rewards have no wide instantiation: a pin config
-    # past the general one's tables is refused under its named limit
-    ("rectangle_pin", {**WEB_MAX, "reward_type": "beam"}, "pins=100 > 48"),
+    # the wide instantiation's beam route lays the nets out on four lane
+    # slots: past them, a beam or "both" config is refused under its
+    # named limit (13 nets of 9 pins take 5, of 17-20 pins 5, of 40 pins 6)
+    ("rectangle_pin", {**_MANY, "min_num_nets": 13, "max_num_nets": 13,
+                       "min_num_pins_per_net": 9, "max_num_pins_per_net": 9,
+                       "reward_type": "beam"}, "beam_slots=5 > 4"),
     ("rectangle_pin", {"height": 10, "width": 33}, "area=330 > 144"),
     ("rectangle_pin", {"height": 5, "width": 40}, "area=200 > 144"),
-    ("rectangle_pin", {**_NINE_COMPONENTS, "reward_type": "both"},
-     "components=9 > 8"),
+    ("rectangle_pin", {**_MANY, "min_num_nets": 5, "max_num_nets": 5,
+                       "min_num_pins_per_net": 17,
+                       "max_num_pins_per_net": 20, "reward_type": "both"},
+     "beam_slots=5 > 4"),
+    # 50 pins on 25 nets: past the general tables' pins and the wide ones'
+    # nets
     ("rectangle_pin", {"min_num_nets": 2, "max_num_nets": 25,
                        "min_num_pins_per_net": 2,
                        "max_num_pins_per_net": 2, "reward_type": "beam"},
-     "pins=50 > 48"),
-    ("rectangle_pin", {**_PPC20, "reward_type": "beam"},
-     "pins_per_component=20 > 16"),
+     "nets=25 > 24"),
+    ("rectangle_pin", {**_MANY, "min_num_nets": 3, "max_num_nets": 3,
+                       "min_num_pins_per_net": 40,
+                       "max_num_pins_per_net": 40, "reward_type": "beam",
+                       "reward_beam_width": 4}, "beam_slots=6 > 4"),
     ("rectangle_pin", {"reward_type": "beam", "reward_beam_width": 5},
      "beam_width=5 > 4"),
     ("rectangle", {"min_num_components": 65, "max_num_components": 65,
@@ -292,20 +301,27 @@ def test_both_refuse_over_limit_configs(config, overrides, limit):
         torch_fused.make_fused_rollout(t, 8, 5, device="cpu")
 
 
-@pytest.mark.parametrize("config,overrides", [
-    ("rectangle_pin", WEB_MAX),
-    ("rectangle_spatial_pin", WEB_MAX),
-    ("rectangle_pin", _NINE_COMPONENTS),
-    ("rectangle_pin", _PPC20),
-    ("rectangle_pin", {"min_num_nets": 2, "max_num_nets": 24,
-                       "min_num_pins_per_net": 2, "max_num_pins_per_net": 2,
-                       **_MANY}),
-], ids=["web_max", "web_max_spatial", "components9", "ppc20", "pins48_40c"])
-def test_jax_refuses_what_the_wide_tier_takes(config, overrides):
-    """Centroid pin configs past the JAX kernel's envelope (and the general
+_NETS24 = {"min_num_nets": 2, "max_num_nets": 24, "min_num_pins_per_net": 2,
+           "max_num_pins_per_net": 2, **_MANY}
+
+
+@pytest.mark.parametrize("config,overrides,reward", [
+    ("rectangle_pin", WEB_MAX, "centroid"),
+    ("rectangle_spatial_pin", WEB_MAX, "centroid"),
+    ("rectangle_pin", _NINE_COMPONENTS, "centroid"),
+    ("rectangle_pin", _PPC20, "centroid"),
+    ("rectangle_pin", _NETS24, "centroid"),
+    ("rectangle_pin", WEB_MAX, "beam"),
+    ("rectangle_pin", _NINE_COMPONENTS, "both"),
+    ("rectangle_pin", _PPC20, "beam"),
+    ("rectangle_pin", _NETS24, "both"),
+], ids=["web_max", "web_max_spatial", "components9", "ppc20", "pins48_40c",
+        "web_max_beam", "components9_both", "ppc20_beam", "pins48_40c_both"])
+def test_jax_refuses_what_the_wide_tier_takes(config, overrides, reward):
+    """Pin configs past the JAX kernel's envelope (and the general
     instantiation's tables) on sides of up to 32: the port takes them on
-    the wide instantiation."""
-    j, t = _params(config, {**overrides, "reward_type": "centroid"})
+    the wide instantiation, under each routing reward."""
+    j, t = _params(config, {**overrides, "reward_type": reward})
     assert not jax_fused.envelope_report(j, block=JAX_BLOCK)[0]
     assert torch_fused.envelope_report(t) == (True, [])
     assert torch_fused.kernel_tier(t) == "wide"

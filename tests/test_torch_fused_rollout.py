@@ -215,17 +215,17 @@ def test_fixtures_are_fresh(jax_zero_b128):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,overrides,limits", [
-    # the web app's maximum sliders under the beam reward, which the JAX
-    # kernel refuses too (tests/tooling/test_fused_rollout.py:182-207); the
-    # centroid kernel's wide instantiation takes them under the centroid
-    # reward (tests/test_torch_fused_envelope.py)
+    # the web app's maximum sliders under a beam wider than 4, which the
+    # JAX kernel refuses too (tests/tooling/test_fused_rollout.py:182-207);
+    # the pin kernels' wide instantiations take them at a width of up to 4
+    # (tests/test_torch_fused_envelope.py)
     ("rectangle_pin", {"height": 30, "width": 30,
                        "min_component_h": 1, "max_component_h": 5,
                        "min_component_w": 1, "max_component_w": 5,
                        "min_num_components": 10, "max_num_components": 40,
                        "min_num_nets": 2, "max_num_nets": 10,
                        "min_num_pins_per_net": 2, "max_num_pins_per_net": 10,
-                       "reward_type": "beam"},
+                       "reward_type": "beam", "reward_beam_width": 5},
      ("components=40", "pins=100", "pins_per_component=25")),
 ])
 def test_unsupported_configs_raise(name, overrides, limits):
@@ -263,13 +263,13 @@ def test_envelope_and_argument_checks():
 
 
 @pytest.mark.parametrize("name,overrides,reason", [
-    # the reduced kernels hold up to 64 components, the beam and "both"
-    # pin kernels 8 (the centroid kernel's wide instantiation 64)
+    # the reduced kernels hold up to 64 components, the pin kernels 8 (their
+    # wide instantiations 64)
     ("rectangle", {"max_num_components": 65, "min_num_components": 65},
      "components_nopin=65 > 64"),
-    ("rectangle_pin", {"max_num_components": 9, "min_num_components": 9,
+    ("rectangle_pin", {"max_num_components": 65, "min_num_components": 65,
                        "reward_type": "beam"},
-     "components=9 > 8"),
+     "components=65 > 64"),
     # the beam width is checked only where a beam is routed
     ("rectangle_pin", {"reward_type": "beam", "reward_beam_width": 5},
      "beam_width=5 > 4"),

@@ -27,7 +27,8 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 #: the instantiation each cell's configuration runs
 TIERS = {"rectangle_pin.centroid": "default", "rectangle_pin.beam": "default",
          "web_nets10.centroid": "general", "web_nets10.both": "general",
-         "web_max.centroid": "wide"}
+         "web_max.centroid": "wide", "web_max.beam": "wide",
+         "rectangle_pin.varpin": "default"}
 
 
 def _env(cell):

@@ -388,11 +388,42 @@ def test_cuda_wide_kernel_web_max_at_4096_boards(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_wide_beam_kernel_web_max_at_4096_boards(cuda):
+    """The wide instantiation of the beam kernel on the web app's largest
+    boards at width 4 (the web_max.beam cell's), 4096 boards, logical
+    block 128: after three chunks that leave the boards mid-episode, a
+    10-step chunk against the plain version: leaves, done counts and board
+    rewards equal (the beam route adds its terms in the plain version's
+    order)."""
+    params = load_env_params("rectangle_spatial_pin").replace(
+        **WEB_MAX, reward_type="beam", reward_beam_width=4)
+    assert torch_fused.kernel_tier(params) == "wide"
+    fn = torch_fused.make_fused_rollout(params, 4096, 50, block=128,
+                                        device=cuda)
+    assert torch_fused.boards_per_sm(params, "wide") * \
+        torch.cuda.get_device_properties(0).multi_processor_count >= 4096
+    leaves = torch_fused.zero_leaves(params, 4096, cuda)
+    for seed in (1, 2, 3):
+        leaves, _, _ = fn.per_board(leaves, seed)
+    short = torch_fused.make_fused_rollout(params, 4096, 10, block=128,
+                                           device=cuda)
+    got, got_r, got_d = short.per_board(leaves, 4)
+    want, want_r, want_d = torch_fused.rollout_chunk_reference(
+        params, leaves, 4, 10, 128)
+    torch.cuda.synchronize()
+    for k in torch_fused._LEAVES:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got_d, want_d) and int(got_d.sum()) > 256
+    assert torch.equal(got_r, want_r)
+    assert (fn.launches, short.launches) == (3, 1)
+
+
+@pytest.mark.gpu
 def test_cuda_wide_kernel_holds_many_boards_and_refuses_past_its_tables(
         cuda):
     """The wide instantiation keeps all 4096 boards resident at once on
     the card, and its limits are refused before any launch: 65 components
-    with pins, or the beam reward past the general tables."""
+    with pins, or nets past its beam route's four lane slots."""
     params = load_env_params("rectangle_spatial_pin").replace(**WEB_MAX)
     assert torch_fused.boards_per_sm(params, "wide") * \
         torch.cuda.get_device_properties(0).multi_processor_count >= 4096
@@ -402,9 +433,11 @@ def test_cuda_wide_kernel_holds_many_boards_and_refuses_past_its_tables(
                           max_component_w=2)
     with pytest.raises(ValueError, match="components=65 > 64"):
         torch_fused.make_fused_rollout(over, 128, 5, device=cuda)
-    with pytest.raises(ValueError, match="pins=100 > 48"):
-        torch_fused.make_fused_rollout(params.replace(reward_type="beam"),
-                                       128, 5, device=cuda)
+    with pytest.raises(ValueError, match="beam_slots=5 > 4"):
+        torch_fused.make_fused_rollout(
+            params.replace(reward_type="beam", min_num_nets=13,
+                           max_num_nets=13, min_num_pins_per_net=9,
+                           max_num_pins_per_net=9), 128, 5, device=cuda)
 
 
 @pytest.mark.gpu

@@ -1,4 +1,4 @@
-"""The wide instantiation of the centroid kernel (two components and four
+"""The wide instantiations of the pin kernels (two components and four
 pins a lane, per-warp tables in shared memory) under the emulated warp,
 against the plain PyTorch version.
 
@@ -8,8 +8,12 @@ and reach the corners of the wide one: more than 32 components with pins
 (the second component slot), more than 64 and more than 96 pins (the
 third and fourth pin slots, and two-pin routes whose far end is there),
 25-cell components (one component's cells a warp pass), nets of more than 32 pins (the allocation's second rank
-slot), 64 components, and nets that overflow the first k components. A
-file of its own, so that ``--dist loadfile`` runs it beside the others.
+slot), 64 components, and nets that overflow the first k components. The
+beam and "both" rewards route the board's nets in two halves on two lane
+slots each (``BEAM_CASES``): the web app's largest boards at width 4, nets
+whose pins fill all four pin slots, and the route's layouts of 17-32 pins
+a net (a net a slot) and of more (a net over two slots). A file of its
+own, so that ``--dist loadfile`` runs it beside the others.
 """
 
 import numpy as np
@@ -71,6 +75,47 @@ CASES = {
 }
 
 
+#: the web app's largest boards, spatial variant
+_WEB_MAX = {"height": 30, "width": 30, "min_component_h": 2,
+            "max_component_h": 5, "min_component_w": 2,
+            "max_component_w": 5, "min_num_components": 40,
+            "max_num_components": 40, "min_num_nets": 10,
+            "max_num_nets": 10, "min_num_pins_per_net": 2,
+            "max_num_pins_per_net": 10}
+#: 40 components of 2..5 x 2..5 cells on a 32 x 32 board
+_FORTY = {**_MANY, "height": 32, "width": 32, "min_num_components": 40,
+          "max_num_components": 40}
+
+#: label -> (config, overrides, steps a chunk) under the beam and "both"
+#: rewards. Each runs 8 boards, logical block 4, two chained chunks: the
+#: zero boards' regeneration, then a placed and routed episode a board.
+BEAM_CASES = {
+    # the web_max.beam cell's configuration and width: three nets of 10
+    # pins a slot, nets 0-5 in the first half and 6-9 in the second
+    "web_max_spatial_beam4": ("rectangle_spatial_pin", {
+        **_WEB_MAX, "reward_type": "beam", "reward_beam_width": 4}, 45),
+    "web_max_spatial_both2": ("rectangle_spatial_pin", {
+        **_WEB_MAX, "reward_type": "both", "reward_beam_width": 2}, 45),
+    # 16 nets of 6..8 pins, their weights spread wide: up to 128 pins, on
+    # all four pin slots; four nets a slot, at width 3
+    "nets16_all_slots_both3": ("rectangle_pin", {
+        **_FORTY, "min_num_nets": 16, "max_num_nets": 16,
+        "min_num_pins_per_net": 6, "max_num_pins_per_net": 8,
+        "net_distribution": 1, "reward_type": "both",
+        "reward_beam_width": 3}, 40),
+    # SLOTS: 4 nets of 17..30 pins, a net a lane slot
+    "slots_nets4_ppn30_beam4": ("rectangle_pin", {
+        **_FORTY, "min_num_nets": 4, "max_num_nets": 4,
+        "min_num_pins_per_net": 17, "max_num_pins_per_net": 30,
+        "reward_type": "beam", "reward_beam_width": 4}, 40),
+    # SPAN: 2 nets of 36..48 pins, a net over two lane slots
+    "span_nets2_ppn48_both2": ("rectangle_pin", {
+        **_FORTY, "min_num_nets": 2, "max_num_nets": 2,
+        "min_num_pins_per_net": 36, "max_num_pins_per_net": 48,
+        "reward_type": "both", "reward_beam_width": 2}, 40),
+}
+
+
 @pytest.fixture(scope="module")
 def emulated_library(tmp_path_factory):
     if emu.compiler() is None:
@@ -102,6 +147,40 @@ def test_emulated_wide_centroid_kernel_matches_plain_version(
         # the plain version adds a board's centroid wirelength terms in
         # another order
         np.testing.assert_allclose(rsum, want_r.numpy(), rtol=0, atol=5e-4)
+        routed += int((rsum != dcnt * penalty).sum())
+    assert (got[0][2] >= 1).all()         # every zero board regenerated
+    assert routed >= 3                    # episodes were routed
+
+
+@pytest.mark.parametrize("case", sorted(BEAM_CASES))
+def test_emulated_wide_beam_kernel_matches_plain_version(emulated_library,
+                                                         case):
+    config, overrides, steps = BEAM_CASES[case]
+    params = load_env_params(config).replace(**overrides).validate()
+    assert torch_fused.kernel_tier(params) == "wide"
+    assert torch_fused.beam_slots(params.max_num_nets,
+                                  params.max_num_pins_per_net) == 4
+    batch, block, seeds = 8, 4, [11, 12]
+    leaves = torch_fused.zero_leaves(params, batch, "cpu")
+    got = emu.run_chunks(emulated_library, torch_fused._kernel_params(params),
+                         torch_fused.leaves_to_numpy(leaves), seeds, steps,
+                         block, CASE_TIMEOUT)
+    routed = 0
+    penalty = np.float32(torch_fused._penalty(params))
+    for seed, (new, rsum, dcnt) in zip(seeds, got):
+        leaves, want_r, want_d = torch_fused.rollout_chunk_reference(
+            params, leaves, seed, steps, block)
+        want = torch_fused.leaves_to_numpy(leaves)
+        for k in torch_fused._LEAVES:
+            np.testing.assert_array_equal(new[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(dcnt, want_d.numpy())
+        if params.reward_type == "beam":
+            np.testing.assert_array_equal(rsum, want_r.numpy())
+        else:
+            # where the centroid route wins, the plain version adds its
+            # wirelength terms in another order
+            np.testing.assert_allclose(rsum, want_r.numpy(), rtol=0,
+                                       atol=5e-4)
         routed += int((rsum != dcnt * penalty).sum())
     assert (got[0][2] >= 1).all()         # every zero board regenerated
     assert routed >= 3                    # episodes were routed
