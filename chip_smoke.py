@@ -832,11 +832,16 @@ def phase_reward_split(label, params, block):
 #: crossing counts that run (boards of two nets or more), their routed
 #: segments V and the pair passes dealt a lane, ceil(V (V - 1) / 64); slot
 #: 12 the per-net allocations (allocate_net's calls, or allocate_net_wide's).
+#: Slots 13-19 split beam_nets (the general and wide beam routes, every
+#: layout; parts of "route", ROUTE_PARTS), slot 20 counts its search rounds
+#: and slot 21 those whose candidates are found by rank counts.
 SPLIT_PHASES = {
     "pin": ("sample", "paint and pins", "planes", "route",
             "generator (not allocate_net)", "allocate_net", "crossings"),
     "reduced": ("sample (nth_cell)", "paint", "planes", None, "generator"),
 }
+ROUTE_PARTS = ("start", "keys", "candidate search", "costs", "keep-best",
+               "update", "wirelength")
 #: [envelope]'s edges (and the default rows) that phase_split and
 #: phase_turns run; "<edge>/<reward>" runs an edge under another reward
 PHASE_ROWS = ("web_nets10", "nets24_both/centroid", "nets24_both",
@@ -846,9 +851,12 @@ PHASE_ROWS = ("web_nets10", "nets24_both/centroid", "nets24_both",
               "pin_centroid/general", "pin_beam/general", "rect/general",
               "web_max", "varpin_parity", "web_max_beam")
 
+#: the counter slots of the instrumented copy (_PROF's PHASE_SLOTS)
+PHASE_SLOTS = 22
 _PROF = r"""
-__shared__ unsigned long long s_phase_clocks[8][13];
-__device__ unsigned long long g_phase_clocks[13];
+#define PHASE_SLOTS @
+__shared__ unsigned long long s_phase_clocks[8][PHASE_SLOTS];
+__device__ unsigned long long g_phase_clocks[PHASE_SLOTS];
 #define PHASE_ADD(i, t0) do { long long now_ = clock64(); \
   if ((threadIdx.x & 31) == 0) s_phase_clocks[threadIdx.x >> 5][i] += \
       now_ - (t0); t0 = now_; } while (0)
@@ -856,20 +864,21 @@ __device__ unsigned long long g_phase_clocks[13];
   s_phase_clocks[threadIdx.x >> 5][i] += (v); } while (0)
 extern "C" int PHASE_READER(unsigned long long* host) {
   cudaMemcpyFromSymbol(host, g_phase_clocks, sizeof(g_phase_clocks));
-  unsigned long long zero[13] = {0};
+  unsigned long long zero[PHASE_SLOTS] = {0};
   cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
   return (int)cudaDeviceSynchronize();
 }
-"""
+""".replace("@", str(PHASE_SLOTS))
 _LOOP = ("  float rsum = 0.0f;\n  int dcnt = 0;\n"
          "  for (int t = 0; t < num_steps; ++t) {\n")
 _LOOP_PROF = ("  float rsum = 0.0f;\n  int dcnt = 0;\n"
               "  if (lane == 0)\n"
-              "    for (int i = 0; i < 13; ++i) s_phase_clocks[warp][i] = 0;\n"
+              "    for (int i = 0; i < PHASE_SLOTS; ++i)\n"
+              "      s_phase_clocks[warp][i] = 0;\n"
               "  long long t_loop = clock64();\n"
               "  for (int t = 0; t < num_steps; ++t) {\n")
 _FLUSH = ("  PHASE_ADD(7, t_loop);\n  if (lane == 0) {\n"
-          "    for (int i = 0; i < 13; ++i)\n"
+          "    for (int i = 0; i < PHASE_SLOTS; ++i)\n"
           "      atomicAdd(&g_phase_clocks[i],\n"
           "                i == 8 ? 1ull : s_phase_clocks[warp][i]);\n"
           "  }\n")
@@ -884,6 +893,33 @@ _CROSSINGS = (
     ("fused_rollout_warp.cu", "  return warp_sum(ints);\n}",
      "  PHASE_ADD(6, tc_);\n", ""),
 )
+#: beam_nets' parts (ROUTE_PARTS: slots 13-19), its rounds (slot 20) and the
+#: rounds whose candidate search counts ranks (slot 21; a source without
+#: that search has no such anchor: _OPTIONAL)
+RANK_SEARCH = "      uint32_t below[2][MAX_BW] = {};\n"
+_ROUTE = (
+    ("fused_rollout_warp.cu", "  const int M = p.pins_per_net, bw = "
+     "p.beam_width;\n  // lanes a segment", "  long long tr_ = clock64();\n",
+     ""),
+    ("fused_rollout_warp.cu", "  for (int step = 0; step < rounds; ++step) {\n"
+     "    const bool active[2] = {step + 1 <= lim[0] - 1, step + 1 <= lim[1] "
+     "- 1};\n", "  PHASE_ADD(13, tr_);\n", "    PHASE_COUNT(20, 1);\n"),
+    ("fused_rollout_warp.cu", "    uint32_t cn[2] = {0u, 0u};\n",
+     "    PHASE_ADD(14, tr_);\n", ""),
+    ("fused_rollout_warp.cu", "    float cc[2][MAX_BW];\n",
+     "    PHASE_ADD(15, tr_);\n", ""),
+    ("fused_rollout_warp.cu", "    uint32_t sel[2][MAX_BW];\n",
+     "    PHASE_ADD(16, tr_);\n", ""),
+    ("fused_rollout_warp.cu", "        if (active[s]) cost[s][k2] = "
+     "__uint_as_float(wh[0][s]);\n      }\n    }\n", "",
+     "    PHASE_ADD(17, tr_);\n"),
+    ("fused_rollout_warp.cu", "      ranks[s] = nranks;\n    }\n", "",
+     "    PHASE_ADD(18, tr_);\n"),
+    ("fused_rollout_warp.cu", "  return wl;\n}\n", "  PHASE_ADD(19, tr_);\n",
+     ""),
+    ("fused_rollout_warp.cu", RANK_SEARCH, "", "      PHASE_COUNT(21, 1);\n"),
+)
+_OPTIONAL = (RANK_SEARCH,)
 #: (file, anchor, text put before it, text put after it)
 _STAMPS = (
     ("fused_rollout_warp.cu", '#include "fused_warp.cuh"\n', "",
@@ -915,6 +951,7 @@ _STAMPS = (
     ("fused_rollout_warp.cu", "  store_rows<FLAT>(p, out.grid + b * A, "
      "bd.grid, lane);\n", _FLUSH, ""),
     *_CROSSINGS,
+    *_ROUTE,
     ("fused_rollout.cu", '#include "fused_warp.cuh"\n', "",
      _PROF.replace("PHASE_READER", "phase_clocks_reduced")),
     ("fused_rollout.cu", "  const int c0 = b.n0, c1 = K == K_SQUARE ? 0 : "
@@ -946,9 +983,9 @@ _STAMPS = (
     ("fused_rollout.cu", "  b.fresh = b.fresh || done;\n", "",
      "  PHASE_ADD(4, t_);\n"),
     ("fused_rollout.cu", "  if (num_steps > 0) {\n    rng.salt = step_salt("
-     "blk_salt, 0);\n", "  if (lane == 0)\n    for (int i = 0; i < 13; ++i) "
-     "s_phase_clocks[threadIdx.x >> 5][i] = 0;\n  long long t_loop = "
-     "clock64();\n", ""),
+     "blk_salt, 0);\n", "  if (lane == 0)\n    for (int i = 0; i < "
+     "PHASE_SLOTS; ++i) s_phase_clocks[threadIdx.x >> 5][i] = 0;\n"
+     "  long long t_loop = clock64();\n", ""),
     ("fused_rollout.cu", "anchors, sl, lane, words, 0, 0, bd);\n  }\n", "",
      _FLUSH.replace("[warp]", "[threadIdx.x >> 5]")),
 )
@@ -963,6 +1000,8 @@ def _instrument(src, dst):
              if f.suffix in (".cu", ".cuh")}
     for name, anchor, before, after in _STAMPS:
         text = texts[name]
+        if anchor in _OPTIONAL and anchor not in text:
+            continue
         _check(text.count(anchor) == 1, f"phase stamps: {name} has "
                                         f"{text.count(anchor)} of {anchor!r}")
         new = before + anchor + after
@@ -1045,7 +1084,7 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
         kind = "reduced" if fr.kernel_name(params) in ("square", "rect") \
             else "pin"
         reader = getattr(libs["stamped"], f"phase_clocks_{kind}")
-        counts = (ctypes.c_ulonglong * 13)()
+        counts = (ctypes.c_ulonglong * PHASE_SLOTS)()
         ms = {}
         for tag in ("plain", "stamped"):
             with _library(libs[tag]):
@@ -1075,6 +1114,7 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
             cross += (f"; allocations a board and chunk "
                       f"{counts[12] / boards!r}, cycles an allocation "
                       f"{counts[5] / counts[12]!r}")
+        cross += _route_split(counts, cycles)
         print(f"[split] {label} ({fn.kernel} kernel, {fn.tier} "
               f"instantiation): ms per chunk "
               f"{ms['plain']!r} (stamped {ms['stamped']!r}); episodes a board "
@@ -1082,6 +1122,25 @@ def phase_split(rows=PHASE_ROWS, csrc=None):
               f"chunk {loop!r}; shares "
               f"{json.dumps({n: c / loop for n, c in cycles.items()})}; "
               f"cycles {json.dumps(cycles)}{cross}", flush=True)
+
+
+def _route_split(counts, cycles):
+    """phase_split's words on beam_nets: its parts' cycles a board and
+    chunk and their shares of the route (the crossing count beside them),
+    its search rounds a board and chunk, and the share of those searched
+    by rank counts (0 where no round ran)."""
+    boards, rounds = counts[8], counts[20]
+    out = ""
+    if rounds:
+        parts = {n: counts[13 + i] / boards
+                 for i, n in enumerate(ROUTE_PARTS)}
+        parts["crossings"] = cycles["crossings"]
+        shares = {n: c / cycles["route"] for n, c in parts.items()}
+        out = (f"; beam_nets' parts a board and chunk {json.dumps(parts)}, "
+               f"shares of the route {json.dumps(shares)}")
+    ranked = counts[21] / rounds if rounds else 0.0
+    return (f"{out}; search rounds a board and chunk {rounds / boards!r}, "
+            f"searched by rank {ranked!r}")
 
 
 def phase_turns(parent, rows=PHASE_ROWS, this=REPO):

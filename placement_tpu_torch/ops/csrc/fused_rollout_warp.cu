@@ -808,17 +808,23 @@ __device__ __forceinline__ uint32_t zero_bytes(uint32_t v) {
 // j, byte k of `visb` = 1 where beam k has visited (or has no) pin j. A
 // round finds the c-th nearest untaken pin of every beam at once: for each
 // c, one reduction (net_reduce) of the search keys per beam and slot, side
-// by side. It then keeps the bw best candidates one after another, each
+// by side; with RANKS (the wide tier's SEGMENTS), the position whose key
+// has rank c in its segment, from one count of the lower keys per beam
+// and slot over the segment's lanes (the general tier's 10-net boards of
+// 2-4 pins read 1-2% slower with it). It then keeps the bw best
+// candidates one after another, each
 // the net's min of (cost, parent rank, pin key, parent k, c) as two
 // reductions: the cost's bits, then, among the lanes that hold that cost,
 // the rest in a word (rk << 26 | pin key << 10 | k << 8 | c << 6 | j). The
 // pin's rank j last leaves the order as it is (the fields before it are
 // unique already) and names the winner's lane. A new beam's path and
 // visited pins are its parent's bytes, permuted.
-template <int MODE>
+template <int MODE, bool RANKS = false>
 __device__ float beam_nets(const FusedRolloutParams& p, int N,
                            const int (&pin)[2], int cnt_l, int start_l,
                            int lane, int* segs, float wl) {
+  static_assert(!RANKS || (MODE == SEGMENTS && MAX_BW == 4),
+                "a rank search over segments, a beam's key a uint4 word");
   const int M = p.pins_per_net, bw = p.beam_width;
   // lanes a segment, segments a slot, this lane's segment and first lane
   const int LM = MODE == SEGMENTS ? M : 32, G = 32 / LM, g = lane / LM;
@@ -911,20 +917,57 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
     // candidates: the c-th nearest pin not taken yet of every beam at once;
     // bits 3k of cn[s]: 4 | c where this position is beam k's c-th
     uint32_t cn[2] = {0u, 0u};
-    for (int c = 0; c < bw; ++c) {
-      uint32_t m[MAX_BW][2];
+    if constexpr (RANKS) {
+      // a segment's keys are unique, so beam k's c-th nearest is the
+      // position with c lower keys: each lane counts them over the other
+      // LM - 1 lanes of its segment, read in turn from the keys in shared
+      // memory (the lanes past a slot's last segment hold NO_KEY and read
+      // lanes of no consequence). They go in the wide route's segment
+      // table, which the crossing count fills only after the route.
+      static_assert(WIDE_P >= 64, "two words of keys a lane");
+      uint4* keys =
+          reinterpret_cast<uint4*>(s_wide[threadIdx.x >> 5].route.seg);
+      __syncwarp();  // the last round's reads are done
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        keys[32 * s + lane] = uint4{dk[s][0], dk[s][1], dk[s][2], dk[s][3]};
+      __syncwarp();
+      uint32_t below[2][MAX_BW] = {};
+      for (int d = 1, o = jl; d < LM; ++d) {
+        o = o + 1 == LM ? 0 : o + 1;
+        const int src = (base + o) & 31;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const uint4 v = keys[32 * s + src];
+          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int k = 0; k < MAX_BW; ++k)
+            if (k < bw) below[s][k] += w[k] < dk[s][k];
+        }
+      }
 #pragma unroll
       for (int k = 0; k < MAX_BW; ++k)
 #pragma unroll
         for (int s = 0; s < 2; ++s)
-          m[k][s] = (cn[s] >> (3 * k)) & 4u ? NO_KEY : dk[s][k];
-      net_reduce<MODE, R_MIN>(m, bw, LM, jl, base);
+          if (k < bw && dk[s][k] != NO_KEY && below[s][k] < (uint32_t)bw)
+            cn[s] |= (4u | below[s][k]) << (3 * k);
+    } else {
+      // a reduction of the keys not taken yet for each c in turn
+      for (int c = 0; c < bw; ++c) {
+        uint32_t m[MAX_BW][2];
 #pragma unroll
-      for (int k = 0; k < MAX_BW; ++k)
+        for (int k = 0; k < MAX_BW; ++k)
 #pragma unroll
-        for (int s = 0; s < 2; ++s)
-          if (k < bw && m[k][s] != NO_KEY && m[k][s] == dk[s][k])
-            cn[s] |= (4u | (uint32_t)c) << (3 * k);
+          for (int s = 0; s < 2; ++s)
+            m[k][s] = (cn[s] >> (3 * k)) & 4u ? NO_KEY : dk[s][k];
+        net_reduce<MODE, R_MIN>(m, bw, LM, jl, base);
+#pragma unroll
+        for (int k = 0; k < MAX_BW; ++k)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            if (k < bw && m[k][s] != NO_KEY && m[k][s] == dk[s][k])
+              cn[s] |= (4u | (uint32_t)c) << (3 * k);
+      }
     }
     // each position's candidate cost for each beam (NO_CAND where none): the
     // parent's cost plus the distance, BIG from a visited pin
@@ -1162,8 +1205,8 @@ __device__ void beam_wl_int_wide(const FusedRolloutParams& p,
     wl = M > 32   ? beam_nets<SPAN>(p, nh, half, cnt_h, st_h, lane, seg_h, wl)
          : M > 16 ? beam_nets<SLOTS>(p, nh, half, cnt_h, st_h, lane, seg_h,
                                      wl)
-                  : beam_nets<SEGMENTS>(p, nh, half, cnt_h, st_h, lane, seg_h,
-                                        wl);
+                  : beam_nets<SEGMENTS, true>(p, nh, half, cnt_h, st_h, lane,
+                                              seg_h, wl);
   }
   wl_out = wl;
   ints_out = beam_crossings<4>(segs, N, M, lane);

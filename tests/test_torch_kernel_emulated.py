@@ -222,6 +222,35 @@ GENERAL_CASES = {
         "height": 4, "width": 33, "min_component_h": 1, "max_component_h": 3,
         "min_component_w": 1, "max_component_w": 3, "min_num_components": 10,
         "max_num_components": 20}),
+    # the segments' candidate search (chained minima here; the wide
+    # file's BEAM_CASES hold the wide tier's rank counts): 48 pins on the
+    # 48 cells of eight 2 x 3 components, so pins at equal distances from
+    # a beam's last pin, whose keys the rank j orders
+    "cells_2x3_nets12_ppn4_beam4": ("rectangle_pin", {
+        "height": 12, "width": 12, "min_component_h": 2,
+        "max_component_h": 2, "min_component_w": 3, "max_component_w": 3,
+        "min_num_components": 8, "max_num_components": 8,
+        "min_num_nets": 12, "max_num_nets": 12, "min_num_pins_per_net": 4,
+        "max_num_pins_per_net": 4, "reward_type": "beam",
+        "reward_beam_width": 4}),
+    # width 4 on nets of 2 and 3 pins: beams take visited candidates
+    "nets16_ppn2_3_beam4": ("rectangle_pin", {
+        **_ROOMY, "min_num_nets": 16, "max_num_nets": 16,
+        "min_num_pins_per_net": 2, "max_num_pins_per_net": 3,
+        "reward_type": "beam", "reward_beam_width": 4}),
+    # M = 16: three full 16-lane segments, under "both" at width 4
+    "nets3_ppn16_both4_36x4": ("rectangle_pin", {
+        **_ROOMY, "height": 36, "width": 4, "min_num_nets": 3,
+        "max_num_nets": 3, "min_num_pins_per_net": 16,
+        "max_num_pins_per_net": 16, "reward_type": "both",
+        "reward_beam_width": 4}),
+    # M = 10: nets 0-2 on slot 0's three segments and lanes 30-31 past
+    # them, net 3 on slot 1
+    "nets4_ppn10_beam3_4x36": ("rectangle_pin", {
+        **_ROOMY, "height": 4, "width": 36, "min_num_nets": 4,
+        "max_num_nets": 4, "min_num_pins_per_net": 10,
+        "max_num_pins_per_net": 10, "reward_type": "beam",
+        "reward_beam_width": 3}),
 }
 
 

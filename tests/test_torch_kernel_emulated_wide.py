@@ -12,7 +12,9 @@ slot), 64 components, and nets that overflow the first k components. The
 beam and "both" rewards route the board's nets in two halves on two lane
 slots each (``BEAM_CASES``): the web app's largest boards at width 4, nets
 whose pins fill all four pin slots, and the route's layouts of 17-32 pins
-a net (a net a slot) and of more (a net over two slots). A file of its
+a net (a net a slot) and of more (a net over two slots); for the segments'
+candidate search by rank counts, pins at equal distances, full 10- and
+16-pin segments and beams wider than their nets. A file of its
 own, so that ``--dist loadfile`` runs it beside the others.
 """
 
@@ -113,6 +115,34 @@ BEAM_CASES = {
         **_FORTY, "min_num_nets": 2, "max_num_nets": 2,
         "min_num_pins_per_net": 36, "max_num_pins_per_net": 48,
         "reward_type": "both", "reward_beam_width": 2}, 40),
+    # the segments' candidate search by rank counts (RANKS in beam_nets):
+    # 40 1 x 1 components on a lattice: pins at equal distances from a
+    # beam's last pin, whose keys the rank j orders; 10 nets of up to 10
+    # pins (the board's 40 cells cap them), lanes 30-31 past each slot's
+    # last segment
+    "lattice_1x1_nets10_ppn10_beam4": ("rectangle_pin", {
+        "height": 12, "width": 12, "min_component_h": 1,
+        "max_component_h": 1, "min_component_w": 1, "max_component_w": 1,
+        "min_num_components": 40, "max_num_components": 40,
+        "min_num_nets": 10, "max_num_nets": 10, "min_num_pins_per_net": 2,
+        "max_num_pins_per_net": 10, "reward_type": "beam",
+        "reward_beam_width": 4}, 45),
+    # M = 10, every net full, under "both" at width 3
+    "nets10_ppn10_both3": ("rectangle_pin", {
+        **_FORTY, "min_num_nets": 10, "max_num_nets": 10,
+        "min_num_pins_per_net": 10, "max_num_pins_per_net": 10,
+        "reward_type": "both", "reward_beam_width": 3}, 40),
+    # M = 16: 8 nets of 16 pins, two full 16-lane segments a slot
+    "nets8_ppn16_beam4": ("rectangle_pin", {
+        **_FORTY, "min_num_nets": 8, "max_num_nets": 8,
+        "min_num_pins_per_net": 16, "max_num_pins_per_net": 16,
+        "reward_type": "beam", "reward_beam_width": 4}, 40),
+    # width 4 on 24 nets of 2..5 pins: beams of 2- and 3-pin nets take
+    # visited candidates (and the positions past a net's pins)
+    "nets24_ppn2_5_beam4": ("rectangle_pin", {
+        **_FORTY, "min_num_nets": 24, "max_num_nets": 24,
+        "min_num_pins_per_net": 2, "max_num_pins_per_net": 5,
+        "reward_type": "beam", "reward_beam_width": 4}, 40),
 }
 
 
