@@ -48,6 +48,9 @@ Phases (any failure raises and the exit code is not 0):
      pin instantiation's registers, stack frame, spill stores and boards
      resident per SM; each general one must hold 32 boards per SM (all
      4,096 at once)
+  2b. [sass] where build/parent holds a parent checkout (``git archive
+     HEAD | tar -x -C build/parent``): each pin kernel's SASS, registers,
+     stack frame and spill stores against the parent's (``phase_sass``)
   3. TPU hardware goldens — k7 start, 128 boards, seed 1234, block 128: the
      rows of experiments/results/fused_hw_validation.json
   4. JAX goldens — zero start, 128 boards, seed 1234 (the varying-pins
@@ -78,8 +81,9 @@ Phases (any failure raises and the exit code is not 0):
      chunk from mid-run boards (board rewards within 5e-4), timed with its
      bound, and the matrix tool's fused row on it
   5d. [wide beam]: the same boards on the wide instantiations of the beam
-     kernel (width 4) and of the "both" kernel (widths 2 and 4): three
-     chained chunks at 4096 boards from zero boards, each held to
+     kernel (width 4) and of the "both" kernel (widths 2 and 4), and on
+     the wide6 ones of both kernels (widths 5 and 6): three chained chunks
+     at 4096 boards from zero boards, each held to
      ``portbench/reference_wide_beam.py`` (leaves and done counts equal,
      beam rewards equal, "both" rewards within 5e-4), timed with the
      bound, beside the centroid kernel's time on the same boards
@@ -373,31 +377,24 @@ def phase_build():
     fused_rollout.kernel_library()
     print(f"[build] {lib.name}: {seconds:.1f} s of nvcc")
     log = lib.with_suffix(".log")
-    label, kernel, usage = "?", None, {}
-    for line in (log.read_text().splitlines() if log.exists() else []):
+    text = log.read_text() if log.exists() else ""
+    label = "?"
+    for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*fused_rollout_"
-                      r"(warp|reduced)_kernelILi(\d)EL[bi]([012])E", line)
+                      r"(warp|reduced)_kernel", line)
         if m:
-            kernel = (fused_rollout.KERNELS[int(m.group(2))]
-                      + ("", "_general", "_wide")[int(m.group(3))])
-            label = f"{kernel} (fused_rollout_{m.group(1)}_kernel)"
+            label = f"{_ptxas_label(line)} (fused_rollout_{m[1]}_kernel)"
         elif "registers" in line or "spill" in line or "stack frame" in line:
             print(f"[build] {label}: {line.strip()}")
-            got = usage.setdefault(kernel, {})
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores", line)
-            if m and "stack" not in got:
-                got["stack"], got["spill"] = int(m[1]), int(m[2])
-            m = re.search(r"Used (\d+) registers", line)
-            if m and "regs" not in got:
-                got["regs"] = int(m[1])
+    usage = _ptxas_usage(text)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     pins = [(k, tier, _row(KERNELS[k][0])[0])
             for k in ("centroid", "beam", "both")
             for tier in ("default", "general")]
     web_max = _row("web_max_pooled")[0]
     pins += [("centroid", "wide", web_max)] + [
-        (k, "wide", web_max.replace(reward_type=k, reward_beam_width=4))
+        (k, tier, web_max.replace(reward_type=k, reward_beam_width=bw))
+        for tier, bw in (("wide", 4), ("wide6", 6))
         for k in ("beam", "both")]
     for k, tier, params in pins:
         name = k if tier == "default" else f"{k}_{tier}"
@@ -716,15 +713,19 @@ def _reference_params(params):
 def _wide_beam_rows():
     """label -> params of [wide beam]'s rows: web_max (bench_matrix's
     ``web_max_pooled``) under the beam reward at width 4 and "both" at
-    widths 2 and 4."""
+    widths 2 and 4 (the wide instantiations), and both rewards at widths 5
+    and 6 (the wide6 ones)."""
     params = _row("web_max_pooled")[0]
     return {f"{k}{bw}": params.replace(reward_type=k, reward_beam_width=bw)
-            for k, bw in (("beam", 4), ("both", 2), ("both", 4))}
+            for k, bw in (("beam", 4), ("both", 2), ("both", 4),
+                          ("beam", 5), ("beam", 6), ("both", 5),
+                          ("both", 6))}
 
 
 def phase_wide_beam():
-    """[wide beam] rows 2w and 3w: web_max on the wide instantiations of
-    the beam and "both" kernels at ``BATCH`` boards, logical block
+    """[wide beam] rows 2w and 3w (and 2w6 and 3w6 at widths 5 and 6):
+    web_max on the wide instantiations of the beam and "both" kernels
+    (wide6 past width 4) at ``BATCH`` boards, logical block
     ``WIDE_BEAM_BLOCK``: three chained chunks from zero boards, each held
     to ``portbench/reference_wide_beam.py`` (leaves and done counts equal;
     beam rewards equal, "both" rewards within 5e-4, where the centroid
@@ -737,8 +738,9 @@ def phase_wide_beam():
     from portbench import reference_wide_beam, workmodel
     out = {}
     for label, params in _wide_beam_rows().items():
-        _check(fr.kernel_tier(params) == "wide", f"{label}: not the wide "
-                                                 "tier")
+        tier = "wide6" if params.reward_beam_width > 4 else "wide"
+        _check(fr.kernel_tier(params) == tier, f"{label}: not the {tier} "
+                                               "tier")
         ref = _reference_params(params)
         fn = fr.make_fused_rollout(params, BATCH, STEPS,
                                    block=WIDE_BEAM_BLOCK, device="cuda")
@@ -849,7 +851,7 @@ PHASE_ROWS = ("web_nets10", "nets24_both/centroid", "nets24_both",
               "wide_rect", "tall_square", "wide_square", "pin_centroid",
               "pin_beam", "pin_both", "rect", "square", "varpin_web",
               "pin_centroid/general", "pin_beam/general", "rect/general",
-              "web_max", "varpin_parity", "web_max_beam")
+              "web_max", "varpin_parity", "web_max_beam", "web_max_beam6")
 
 #: the counter slots of the instrumented copy (_PROF's PHASE_SLOTS)
 PHASE_SLOTS = 22
@@ -896,7 +898,7 @@ _CROSSINGS = (
 #: beam_nets' parts (ROUTE_PARTS: slots 13-19), its rounds (slot 20) and the
 #: rounds whose candidate search counts ranks (slot 21; a source without
 #: that search has no such anchor: _OPTIONAL)
-RANK_SEARCH = "      uint32_t below[2][MAX_BW] = {};\n"
+RANK_SEARCH = "      uint32_t below[2][BW] = {};\n"
 _ROUTE = (
     ("fused_rollout_warp.cu", "  const int M = p.pins_per_net, bw = "
      "p.beam_width;\n  // lanes a segment", "  long long tr_ = clock64();\n",
@@ -906,9 +908,9 @@ _ROUTE = (
      "- 1};\n", "  PHASE_ADD(13, tr_);\n", "    PHASE_COUNT(20, 1);\n"),
     ("fused_rollout_warp.cu", "    uint32_t cn[2] = {0u, 0u};\n",
      "    PHASE_ADD(14, tr_);\n", ""),
-    ("fused_rollout_warp.cu", "    float cc[2][MAX_BW];\n",
+    ("fused_rollout_warp.cu", "    float cc[2][BW];\n",
      "    PHASE_ADD(15, tr_);\n", ""),
-    ("fused_rollout_warp.cu", "    uint32_t sel[2][MAX_BW];\n",
+    ("fused_rollout_warp.cu", "    uint32_t sel[2][BW];\n",
      "    PHASE_ADD(16, tr_);\n", ""),
     ("fused_rollout_warp.cu", "        if (active[s]) cost[s][k2] = "
      "__uint_as_float(wh[0][s]);\n      }\n    }\n", "",
@@ -947,7 +949,7 @@ _STAMPS = (
     ("fused_rollout_warp.cu", "                      __shfl_sync(FULL, "
      "b.cw[0], 0), true, lane);\n}", "", ""),
     ("fused_rollout_warp.cu", _LOOP + "    rng.salt = step_salt(blk_salt, t);"
-     "\n    if constexpr (TIER == T_WIDE)", "", ""),
+     "\n    if constexpr (TIER >= T_WIDE)", "", ""),
     ("fused_rollout_warp.cu", "  store_rows<FLAT>(p, out.grid + b * A, "
      "bd.grid, lane);\n", _FLUSH, ""),
     *_CROSSINGS,
@@ -1042,6 +1044,8 @@ def _phase_row(name):
         params, block = _row("web_max_pooled")[0], BLOCK
     elif base == "web_max_beam":  # the wide beam kernel, as web_max.beam
         params, block = _wide_beam_rows()["beam4"], WIDE_BEAM_BLOCK
+    elif base == "web_max_beam6":  # the wide6 one, as web_max.beam6
+        params, block = _wide_beam_rows()["beam6"], WIDE_BEAM_BLOCK
     else:
         params, block = _row(base)
     if variant in ("centroid", "beam", "both"):
@@ -1184,6 +1188,136 @@ def phase_turns(parent, rows=PHASE_ROWS, this=REPO):
               f"({best['this'] / best['parent']!r} x)", flush=True)
         _check(same, f"{label}: this checkout's kernel differs from the "
                      "parent's")
+
+
+#: differing instructions phase_sass prints a kernel
+SASS_SHOWN = 12
+#: the pin kernels' tier suffixes, in the order of fused_rollout.TIERS
+_TIER_SUFFIX = ("", "_general", "_wide", "_wide6")
+
+
+def _kernel_label(k, tier):
+    """A kernel's name from its template arguments <K, TIER> (the reduced
+    kernels' GENERAL flag is their tier)."""
+    return tuple(KERNELS)[int(k)] + _TIER_SUFFIX[int(tier)]
+
+
+def _ptxas_label(name):
+    """The label of the fused kernel a mangled name (or a line holding
+    one) names, or None."""
+    m = re.search(r"fused_rollout_(?:warp|reduced)_kernelILi(\d)EL[bi]"
+                  r"([0-3])E", name)
+    return _kernel_label(m[1], m[2]) if m else None
+
+
+def _ptxas_usage(log):
+    """``ptxas -v`` output -> kernel label -> registers, stack frame and
+    spill stores of each fused kernel. A stack line is the function's that
+    the ``Function properties for`` line before it names, the registers
+    the entry function's being compiled, in whichever order ptxas prints
+    the functions."""
+    usage, entry, props = {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = _ptxas_label(line)
+        elif "Function properties for" in line:
+            props = _ptxas_label(line)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores", line):
+            if props:
+                usage.setdefault(props, {}).update(stack=int(m[1]),
+                                                   spill=int(m[2]))
+            props = None
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            usage.setdefault(entry, {})["regs"] = int(m[1])
+            entry = None
+    return usage
+
+
+def _sass_kernels(text):
+    """``cuobjdump -sass`` output -> kernel label (or, for a function the
+    kernels call, its name without the file's namespace tag) -> its
+    instructions, in order, without addresses or encodings."""
+    out, label = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"fused_rollout_warp_kernelILi(\d)ELi(\d)E", m[1])
+            label = _kernel_label(k[1], k[2]) if k else "fn " + re.sub(
+                r"_GLOBAL__N__\w+?_", "", m[1])
+            out[label] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and label:
+            out[label].append(m[1])
+    return out
+
+
+def phase_sass(parent, this=REPO):
+    """The pin kernels' machine code from ``parent`` (a checkout's root)
+    and from ``this`` one: each side's ``fused_rollout_warp.cu`` compiled
+    to a cubin with the build's flags, each kernel's SASS instructions
+    (``cuobjdump -sass``, without addresses) and its registers, stack
+    frame and spill stores (``ptxas -v``). Prints, for the kernels both
+    hold, whether they are the parent's instruction for instruction, and
+    the figures of the kernels only this one holds; returns label ->
+    (the same as the parent's or None, this side's usage)."""
+    from placement_tpu_torch.ops import _build
+    out_dir = REPO / "build" / "sass"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    cuobjdump = str(pathlib.Path(nvcc).with_name("cuobjdump"))
+    sides = {}
+    for tag, root in (("parent", pathlib.Path(parent)),
+                      ("this", pathlib.Path(this))):
+        src = root / "placement_tpu_torch" / "ops" / "csrc" / \
+            "fused_rollout_warp.cu"
+        cubin = out_dir / f"{tag}.cubin"
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-cubin", "-o",
+                               str(cubin), str(src)], capture_output=True,
+                              text=True)
+        _check(proc.returncode == 0, f"nvcc -cubin of {src}: "
+                                     f"{proc.stdout}{proc.stderr}")
+        sass = subprocess.run([cuobjdump, "-sass", str(cubin)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        (out_dir / f"{tag}.sass").write_text(sass)
+        (out_dir / f"{tag}.ptxas.log").write_text(proc.stdout + proc.stderr)
+        sides[tag] = (_sass_kernels(sass),
+                      _ptxas_usage(proc.stdout + proc.stderr))
+        print(f"[sass] {tag}: {src}, {time.perf_counter() - t0:.1f} s, "
+              f"{len(sides[tag][0])} pin kernels", flush=True)
+    (old, old_use), (new, new_use) = sides["parent"], sides["this"]
+    for tag, fns in (("parent", old), ("this", new)):
+        called = {k: len(v) for k, v in fns.items() if k.startswith("fn ")}
+        print(f"[sass] {tag}: functions the kernels call {called}",
+              flush=True)
+    out = {}
+    for label in sorted(k for k in new if not k.startswith("fn ")):
+        use = new_use.get(label, {})
+        _check(len(use) == 3 and (label not in old or
+                                  len(old_use.get(label, {})) == 3),
+               f"{label}: no ptxas figures in the build's log")
+        figures = (f"{use.get('regs')} registers, {use.get('stack')} B "
+                   f"stack frame, {use.get('spill')} B spill stores")
+        if label not in old:
+            print(f"[sass] {label}: new, {len(new[label])} instructions; "
+                  f"{figures}", flush=True)
+            out[label] = (None, use)
+            continue
+        same = old[label] == new[label] and old_use.get(label) == use
+        pairs = [(i, a, b) for i, (a, b) in enumerate(zip(old[label],
+                                                          new[label]))
+                 if a != b]
+        print(f"[sass] {label}: the parent's instruction for instruction "
+              f"{same} ({len(old[label])} -> {len(new[label])} "
+              f"instructions, {len(pairs)} differing in place); {figures} "
+              f"(parent {old_use.get(label)})", flush=True)
+        for i, a, b in pairs[:SASS_SHOWN]:
+            print(f"[sass]   {label} #{i}: {a} | {b}", flush=True)
+        out[label] = (same, use)
+    return out
 
 
 def phase_main_path(params, ref_mean):
@@ -3088,6 +3222,11 @@ def main():
     from placement_tpu_torch.ops import fused_rollout as fr
     from placement_tpu_torch.tools import bench_matrix as bm
     phase_build()
+    parent = REPO / "build" / "parent"
+    if (parent / "placement_tpu_torch").is_dir():
+        phase_sass(parent)
+    else:
+        print(f"[sass] no parent checkout in {parent}: skipped", flush=True)
     for kernel in KERNELS:
         phase_hw_golden(kernel)
     goldens = {g: phase_jax_golden(g) for g in JAX_GOLDENS}
@@ -3256,21 +3395,24 @@ def main():
         "library_ms": None,
     })
     # the wide instantiations of the beam and "both" kernels, on web_max at
-    # width 4 (the "both" error the larger of widths 2 and 4)
-    for k in ("beam", "both"):
-        err, ms, plain_ms, bound_ms, bound_by, _ = wide_beam[f"{k}4"]
+    # width 4 (the "both" error the larger of widths 2 and 4), and the
+    # wide6 ones at width 6 (the error the larger of widths 5 and 6)
+    for k, tier, bw, widths in (
+            (k, tier, bw, widths) for k in ("beam", "both")
+            for tier, bw, widths in (("wide", 4, "24"), ("wide6", 6, "56"))):
+        err, ms, plain_ms, bound_ms, bound_by, _ = wide_beam[f"{k}{bw}"]
+        rows = [v for key, v in wide_beam.items()
+                if key.startswith(k) and key[-1] in widths]
         entries.append({
-            "name": f"fused_rollout_{k}_wide",
+            "name": f"fused_rollout_{k}_{tier}",
             "route": "cuda",
             "source": SOURCES[k],
             "replaces": f"placement_tpu/ops/fused_rollout.py:866 "
                         f"({KERNELS[k][-1]}; components > 8, pins > 48 or "
                         f"pins per component > 16, outside the JAX "
                         f"kernel's envelope)",
-            "launches": sum(v[-1] for key, v in wide_beam.items()
-                            if key.startswith(k)),
-            "max_abs_err": max(v[0] for key, v in wide_beam.items()
-                               if key.startswith(k)),
+            "launches": sum(v[-1] for v in rows),
+            "max_abs_err": max(v[0] for v in rows),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,

@@ -31,6 +31,9 @@ constexpr int MAX_P = 48;     // pin-table length
 constexpr int MAX_PPC = 16;   // pins (cells) per component
 constexpr int MAX_C_NOPIN = 64;  // components of SQUARE / RECT boards
 constexpr int MAX_BW = 4;     // beam width
+// The beam widths of the wide tier's second instantiation of the beam and
+// "both" kernels (T_WIDE6): the Train page's widest beams, 5 and 6.
+constexpr int WIDE6_BW = 6;
 // The default instantiation (T_DEFAULT; GENERAL = false), the flagship's
 // and every configuration's within these: a grid row per lane (sides <=
 // 32), at most DEFAULT_N nets of DEFAULT_M pins.
@@ -57,8 +60,14 @@ __host__ __device__ constexpr int beam_slots(int N, int M) {
 }
 
 // The pin kernels' instantiations (FusedRolloutParams::tier):
-// fused_rollout_warp_kernel<K, TIER>.
-enum Tier { T_DEFAULT = 0, T_GENERAL = 1, T_WIDE = 2 };
+// fused_rollout_warp_kernel<K, TIER>. T_WIDE6 is T_WIDE's board and tables
+// with a beam route of up to WIDE6_BW beams (K_BEAM and K_BOTH only).
+enum Tier { T_DEFAULT = 0, T_GENERAL = 1, T_WIDE = 2, T_WIDE6 = 3 };
+
+// The most beams the beam route of an instantiation holds.
+__host__ __device__ constexpr int tier_beam_width(int tier) {
+  return tier == T_WIDE6 ? WIDE6_BW : MAX_BW;
+}
 
 // The kernel's specialisations; KERNELS in fused_rollout.py names them.
 enum Kernel { K_CENTROID = 0, K_BEAM = 1, K_BOTH = 2, K_SQUARE = 3,

@@ -684,18 +684,20 @@ void launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
 
 // Whether the instantiation that p.tier picks holds p's board and, for
 // the pin kernels, its nets. The general square holds a board of at most
-// SEG words; the wide tier is the pin kernels' alone, and its tables and
-// beam route are held to its capacities here.
+// SEG words; the wide tiers are the pin kernels' alone (T_WIDE6 the beam
+// and "both" kernels'), and their tables and beam routes are held to their
+// capacities here.
 bool fits(const FusedRolloutParams& p) {
   const bool rows = p.height <= MAX_H && p.width <= MAX_W;
-  if (p.tier == T_WIDE)
+  if (p.tier == T_WIDE || p.tier == T_WIDE6)
     return p.kernel <= K_BOTH && rows && p.components <= WIDE_C &&
            p.nets <= WIDE_N && p.pins_per_net >= 1 &&
            p.pins_per_net <= WIDE_M && p.pins <= WIDE_P &&
            p.pins_per_component <= WIDE_PPC &&
-           (p.kernel == K_CENTROID ||
-            (p.beam_width <= MAX_BW &&
-             beam_slots(p.nets, p.pins_per_net) <= WIDE_BEAM_SLOTS));
+           (p.kernel == K_CENTROID
+                ? p.tier == T_WIDE
+                : p.beam_width <= tier_beam_width(p.tier) &&
+                      beam_slots(p.nets, p.pins_per_net) <= WIDE_BEAM_SLOTS);
   const bool general = p.tier == T_GENERAL;
   if (general && p.kernel == K_SQUARE && p.height * p.row_stride > 32 * SEG)
     return false;
@@ -709,8 +711,9 @@ bool fits(const FusedRolloutParams& p) {
 extern "C" {
 
 // The kernel's fixed capacity named `what`, or -1 (the host checks these
-// against KERNEL_CAPACITY in fused_rollout.py, and the wide tier's,
-// "wide.<name>", against WIDE_CAPACITY).
+// against KERNEL_CAPACITY in fused_rollout.py, the wide tier's,
+// "wide.<name>", against WIDE_CAPACITY, and the wide6 tier's beam width
+// against WIDE6_CAPACITY).
 int fused_rollout_capacity(const char* what) {
   if (!strcmp(what, "wide.height")) return MAX_H;
   if (!strcmp(what, "wide.width")) return MAX_W;
@@ -720,6 +723,7 @@ int fused_rollout_capacity(const char* what) {
   if (!strcmp(what, "wide.pins")) return WIDE_P;
   if (!strcmp(what, "wide.pins_per_component")) return WIDE_PPC;
   if (!strcmp(what, "wide.beam_slots")) return WIDE_BEAM_SLOTS;
+  if (!strcmp(what, "wide6.beam_width")) return WIDE6_BW;
   if (!strcmp(what, "height")) return MAX_H;
   if (!strcmp(what, "width")) return MAX_W;
   if (!strcmp(what, "area")) return MAX_AREA_LONG;

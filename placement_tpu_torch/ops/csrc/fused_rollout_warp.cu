@@ -90,6 +90,12 @@
 // 2 of 33-48. Its route scratch (the beam route's segments included) and
 // its generator's tables share one per-warp slice (WideScratch), since an
 // episode's route ends before the next instance is generated.
+// The beam and "both" kernels have a fourth instantiation, T_WIDE6: the
+// wide one with a beam route of up to WIDE6_BW = 6 beams (the web app's
+// widest), which runs every pin config on sides <= 32 at width 5 or 6. Its
+// beams' bytes (last pin, path position, visited flag) take 64-bit words,
+// and a beam index 3 bits (BeamBits<6>); the other instantiations keep
+// MAX_BW = 4 and their code.
 // Every f32 sum whose order the plain version fixes is still taken in that
 // order (the wirelength over pins, or over nets and path positions, the
 // allocation's weights (as the integer sums they equal), the softmax total
@@ -104,6 +110,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "fused_common.cuh"
 #include "fused_warp.cuh"
 
@@ -117,7 +125,7 @@ constexpr int MIN_BLOCKS = 4;            // 64 registers a thread
 // cells a component, and the lane slots its board takes for them.
 template <int TIER>
 struct Cap {
-  static constexpr bool WIDE = TIER == T_WIDE;
+  static constexpr bool WIDE = TIER >= T_WIDE;
   static constexpr int C = WIDE ? WIDE_C : MAX_C;
   static constexpr int N = WIDE ? WIDE_N : MAX_N;
   static constexpr int M = WIDE ? WIDE_M : MAX_M;
@@ -795,6 +803,40 @@ __device__ __forceinline__ uint32_t zero_bytes(uint32_t v) {
   const uint32_t t = (v & 0x7f7f7f7fu) + 0x7f7f7f7fu;
   return ~(t | v | 0x7f7f7f7fu) >> 7;
 }
+__device__ __forceinline__ uint64_t zero_bytes(uint64_t v) {
+  const uint64_t t = (v & 0x7f7f7f7f7f7f7f7full) + 0x7f7f7f7f7f7f7f7full;
+  return ~(t | v | 0x7f7f7f7f7f7f7f7full) >> 7;
+}
+
+// Byte k of the result = byte (nibble k of `sel`) of v: a beam's bytes
+// moved to the new beams whose parent it is.
+__device__ __forceinline__ uint32_t permute_beams(uint32_t v, uint32_t sel) {
+  return __byte_perm(v, 0u, sel);
+}
+__device__ __forceinline__ uint64_t permute_beams(uint64_t v, uint32_t sel) {
+  const uint32_t lo = (uint32_t)v, hi = (uint32_t)(v >> 32);
+  return (uint64_t)__byte_perm(lo, hi, sel >> 16) << 32 |
+         __byte_perm(lo, hi, sel);
+}
+
+// How beam_nets packs the fields of up to BW beams: a beam's last pin,
+// path position and visited flag a byte of a Word (32 bits up to four
+// beams, 64 past them); its path rank, and a candidate's parent and index,
+// IB bits; a position's candidate of beam k, bits CB k of a word (FLAG |
+// its index c). The keep-best word: rk << RK | pin key << KEY | k << K |
+// c << 6 | j (the pin key 16 bits, j 6).
+template <int BW>
+struct BeamBits {
+  static_assert(BW <= 8, "a beam's byte in a 64-bit word");
+  using Word = typename std::conditional<(BW > 4), uint64_t, uint32_t>::type;
+  static constexpr Word ONES = (Word)0x0101010101010101ull;
+  static constexpr int IB = BW > 4 ? 3 : 2;
+  static constexpr uint32_t IMASK = (1u << IB) - 1u;
+  static constexpr int CB = IB + 1;
+  static constexpr uint32_t FLAG = 1u << IB;
+  static constexpr int K = 6 + IB, KEY = 6 + 2 * IB, RK = 22 + 2 * IB;
+  static_assert(RK + IB <= 32, "the keep-best word in 32 bits");
+};
 
 // The beam routes of the board's nets 0..N-1 (see beam_wl_int_general):
 // writes each net's segments to segs[n * M + t] and returns the
@@ -819,12 +861,15 @@ __device__ __forceinline__ uint32_t zero_bytes(uint32_t v) {
 // pin's rank j last leaves the order as it is (the fields before it are
 // unique already) and names the winner's lane. A new beam's path and
 // visited pins are its parent's bytes, permuted.
-template <int MODE, bool RANKS = false>
+template <int MODE, bool RANKS = false, int BW = MAX_BW>
 __device__ float beam_nets(const FusedRolloutParams& p, int N,
                            const int (&pin)[2], int cnt_l, int start_l,
                            int lane, int* segs, float wl) {
-  static_assert(!RANKS || (MODE == SEGMENTS && MAX_BW == 4),
-                "a rank search over segments, a beam's key a uint4 word");
+  static_assert(!RANKS || (MODE == SEGMENTS && BW <= 6),
+                "a rank search over segments, a beam's keys a uint4 (and a "
+                "uint2) word");
+  using B = BeamBits<BW>;
+  using Word = typename B::Word;
   const int M = p.pins_per_net, bw = p.beam_width;
   // lanes a segment, segments a slot, this lane's segment and first lane
   const int LM = MODE == SEGMENTS ? M : 32, G = 32 / LM, g = lane / LM;
@@ -876,18 +921,24 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
   net_reduce<MODE, R_MIN>(first, 1, LM, jl, base);
   const uint32_t start[2] = {first[0][0], first[0][1]};
 
-  float cost[2][MAX_BW];
-  uint32_t curs[2], ranks[2], path[2], visb[2], kj[2];
+  // (declared in the order of the four-beam route's words: its code keeps
+  // the same registers)
+  float cost[2][BW];
+  Word curs[2];
+  uint32_t ranks[2];
+  Word path[2], visb[2];
+  uint32_t kj[2];
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
 #pragma unroll
-    for (int k = 0; k < MAX_BW; ++k) cost[s][k] = k == 0 ? 0.f : BIG;
-    curs[s] = start[s] * 0x01010101u;
+    for (int k = 0; k < BW; ++k) cost[s][k] = k == 0 ? 0.f : BIG;
+    curs[s] = (Word)start[s] * B::ONES;
     ranks[s] = 0u;
-    path[s] = j[s] == 0 ? start[s] * 0x01010101u : 0u;
-    visb[s] = (j[s] == (int)start[s] || !present[s]) ? 0x01010101u : 0u;
+    path[s] = j[s] == 0 ? (Word)start[s] * B::ONES : 0u;
+    visb[s] = (j[s] == (int)start[s] || !present[s]) ? B::ONES : 0u;
     // the pin's key (the order of x * 32768 + y) and rank, in place
-    kj[s] = (uint32_t)((x[s] + 1) << 8 | (y[s] + 1)) << 10 | (uint32_t)j[s];
+    kj[s] = (uint32_t)((x[s] + 1) << 8 | (y[s] + 1)) << B::KEY |
+            (uint32_t)j[s];
   }
   const int rounds = (int)__reduce_max_sync(
       FULL, (unsigned)max(max(lim[0], lim[1]) - 1, 0));
@@ -895,9 +946,9 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
   for (int step = 0; step < rounds; ++step) {
     const bool active[2] = {step + 1 <= lim[0] - 1, step + 1 <= lim[1] - 1};
     // each position's search key for each beam
-    uint32_t dk[2][MAX_BW];
+    uint32_t dk[2][BW];
 #pragma unroll
-    for (int k = 0; k < MAX_BW; ++k) {
+    for (int k = 0; k < BW; ++k) {
       dk[0][k] = dk[1][k] = NO_KEY;
       if (k >= bw) continue;
       const int cur[2] = {(int)(curs[0] >> (8 * k)) & 0xff,
@@ -915,7 +966,7 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
       }
     }
     // candidates: the c-th nearest pin not taken yet of every beam at once;
-    // bits 3k of cn[s]: 4 | c where this position is beam k's c-th
+    // bits CB k of cn[s]: FLAG | c where this position is beam k's c-th
     uint32_t cn[2] = {0u, 0u};
     if constexpr (RANKS) {
       // a segment's keys are unique, so beam k's c-th nearest is the
@@ -924,15 +975,24 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
       // memory (the lanes past a slot's last segment hold NO_KEY and read
       // lanes of no consequence). They go in the wide route's segment
       // table, which the crossing count fills only after the route.
-      static_assert(WIDE_P >= 64, "two words of keys a lane");
+      // (beams 4 and 5 in a uint2 a lane and slot, after the uint4s)
+      static_assert(WIDE_P * sizeof(float4) >= 64 * (sizeof(uint4) +
+                                                     sizeof(uint2)),
+                    "two words of keys a lane");
       uint4* keys =
           reinterpret_cast<uint4*>(s_wide[threadIdx.x >> 5].route.seg);
       __syncwarp();  // the last round's reads are done
 #pragma unroll
       for (int s = 0; s < 2; ++s)
         keys[32 * s + lane] = uint4{dk[s][0], dk[s][1], dk[s][2], dk[s][3]};
+      if constexpr (BW > 4) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          reinterpret_cast<uint2*>(keys + 64)[32 * s + lane] =
+              uint2{dk[s][4], dk[s][5]};
+      }
       __syncwarp();
-      uint32_t below[2][MAX_BW] = {};
+      uint32_t below[2][BW] = {};
       for (int d = 1, o = jl; d < LM; ++d) {
         o = o + 1 == LM ? 0 : o + 1;
         const int src = (base + o) & 31;
@@ -941,43 +1001,48 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
           const uint4 v = keys[32 * s + src];
           const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-          for (int k = 0; k < MAX_BW; ++k)
+          for (int k = 0; k < 4; ++k)
             if (k < bw) below[s][k] += w[k] < dk[s][k];
+          if constexpr (BW > 4) {
+            const uint2 v2 = reinterpret_cast<uint2*>(keys + 64)[32 * s + src];
+            if (4 < bw) below[s][4] += v2.x < dk[s][4];
+            if (5 < bw) below[s][5] += v2.y < dk[s][5];
+          }
         }
       }
 #pragma unroll
-      for (int k = 0; k < MAX_BW; ++k)
+      for (int k = 0; k < BW; ++k)
 #pragma unroll
         for (int s = 0; s < 2; ++s)
           if (k < bw && dk[s][k] != NO_KEY && below[s][k] < (uint32_t)bw)
-            cn[s] |= (4u | below[s][k]) << (3 * k);
+            cn[s] |= (B::FLAG | below[s][k]) << (B::CB * k);
     } else {
       // a reduction of the keys not taken yet for each c in turn
       for (int c = 0; c < bw; ++c) {
-        uint32_t m[MAX_BW][2];
+        uint32_t m[BW][2];
 #pragma unroll
-        for (int k = 0; k < MAX_BW; ++k)
+        for (int k = 0; k < BW; ++k)
 #pragma unroll
           for (int s = 0; s < 2; ++s)
-            m[k][s] = (cn[s] >> (3 * k)) & 4u ? NO_KEY : dk[s][k];
+            m[k][s] = (cn[s] >> (B::CB * k)) & B::FLAG ? NO_KEY : dk[s][k];
         net_reduce<MODE, R_MIN>(m, bw, LM, jl, base);
 #pragma unroll
-        for (int k = 0; k < MAX_BW; ++k)
+        for (int k = 0; k < BW; ++k)
 #pragma unroll
           for (int s = 0; s < 2; ++s)
             if (k < bw && m[k][s] != NO_KEY && m[k][s] == dk[s][k])
-              cn[s] |= (4u | (uint32_t)c) << (3 * k);
+              cn[s] |= (B::FLAG | (uint32_t)c) << (B::CB * k);
       }
     }
     // each position's candidate cost for each beam (NO_CAND where none): the
     // parent's cost plus the distance, BIG from a visited pin
-    float cc[2][MAX_BW];
+    float cc[2][BW];
 #pragma unroll
     for (int s = 0; s < 2; ++s)
 #pragma unroll
-      for (int k = 0; k < MAX_BW; ++k) {
+      for (int k = 0; k < BW; ++k) {
         cc[s][k] = NO_CAND;
-        if (k >= bw || !((cn[s] >> (3 * k)) & 4u)) continue;
+        if (k >= bw || !((cn[s] >> (B::CB * k)) & B::FLAG)) continue;
         const float d = dk[s][k] >= VISITED
                             ? BIG
                             : sqrtf((float)(dk[s][k] >> 6));
@@ -986,9 +1051,9 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
       }
     // keep the bw best: new beam k2 is the candidate of key rank k2;
     // sel[s][k2] = its key's low word
-    uint32_t sel[2][MAX_BW];
+    uint32_t sel[2][BW];
 #pragma unroll
-    for (int k2 = 0; k2 < MAX_BW; ++k2) {
+    for (int k2 = 0; k2 < BW; ++k2) {
       sel[0][k2] = sel[1][k2] = 0u;
       if (k2 >= bw) continue;
       uint32_t hi[2], lo[2];
@@ -996,15 +1061,15 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
       for (int s = 0; s < 2; ++s) {
         float bc = NO_CAND;
 #pragma unroll
-        for (int k = 0; k < MAX_BW; ++k)
+        for (int k = 0; k < BW; ++k)
           if (k < bw) bc = fminf(bc, cc[s][k]);
         uint32_t low = ~0u;
 #pragma unroll
-        for (int k = 0; k < MAX_BW; ++k)
+        for (int k = 0; k < BW; ++k)
           if (k < bw && cc[s][k] == bc)
-            low = min(low, ((ranks[s] >> (2 * k)) & 3u) << 26 |
-                               (uint32_t)k << 8 |
-                               ((cn[s] >> (3 * k)) & 3u) << 6);
+            low = min(low, ((ranks[s] >> (B::IB * k)) & B::IMASK) << B::RK |
+                               (uint32_t)k << B::K |
+                               ((cn[s] >> (B::CB * k)) & B::IMASK) << 6);
         hi[s] = __float_as_uint(bc);
         lo[s] = low | kj[s];
       }
@@ -1015,9 +1080,10 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
       net_reduce<MODE, R_MIN>(wlo, 1, LM, jl, base);
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        const int jj = (int)(wlo[0][s] & 63u), kp = (int)(wlo[0][s] >> 8) & 3;
+        const int jj = (int)(wlo[0][s] & 63u);
+        const int kp = (int)(wlo[0][s] >> B::K) & B::IMASK;
 #pragma unroll
-        for (int k = 0; k < MAX_BW; ++k)
+        for (int k = 0; k < BW; ++k)
           if (j[s] == jj && k == kp) cc[s][k] = NO_CAND;
         sel[s][k2] = wlo[0][s];
         if (active[s]) cost[s][k2] = __uint_as_float(wh[0][s]);
@@ -1028,23 +1094,25 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       if (!active[s]) continue;
-      uint32_t parent = 0u, ncurs = 0u, nranks = 0u;
+      uint32_t parent = 0u;
+      Word ncurs = 0u;
+      uint32_t nranks = 0u;
 #pragma unroll
-      for (int k2 = 0; k2 < MAX_BW; ++k2) {
+      for (int k2 = 0; k2 < BW; ++k2) {
         if (k2 >= bw) continue;
-        const uint32_t pk = sel[s][k2] >> 10;  // parent rank, pin key
+        const uint32_t pk = sel[s][k2] >> B::KEY;  // parent rank, pin key
         uint32_t r = 0u;
 #pragma unroll
-        for (int k3 = 0; k3 < MAX_BW; ++k3)
-          r += k3 < bw && (sel[s][k3] >> 10) < pk;
-        nranks |= r << (2 * k2);
-        parent |= ((sel[s][k2] >> 8) & 3u) << (4 * k2);
-        ncurs |= (sel[s][k2] & 63u) << (8 * k2);
+        for (int k3 = 0; k3 < BW; ++k3)
+          r += k3 < bw && (sel[s][k3] >> B::KEY) < pk;
+        nranks |= r << (B::IB * k2);
+        parent |= ((sel[s][k2] >> B::K) & B::IMASK) << (4 * k2);
+        ncurs |= (Word)(sel[s][k2] & 63u) << (8 * k2);
       }
-      const uint32_t pbytes = __byte_perm(path[s], 0u, parent);
+      const Word pbytes = permute_beams(path[s], parent);
       path[s] = j[s] <= step ? pbytes : (j[s] == step + 1 ? ncurs : 0u);
-      visb[s] = __byte_perm(visb[s], 0u, parent) |
-                zero_bytes(ncurs ^ (uint32_t)j[s] * 0x01010101u);
+      visb[s] = permute_beams(visb[s], parent) |
+                zero_bytes(ncurs ^ (Word)j[s] * B::ONES);
       curs[s] = ncurs;
       ranks[s] = nranks;
     }
@@ -1057,10 +1125,10 @@ __device__ float beam_nets(const FusedRolloutParams& p, int N,
   for (int s = 0; s < 2; ++s) {
     int best = 0;
     float bc = cost[s][0];
-    uint32_t br = ranks[s] & 3u;
+    uint32_t br = ranks[s] & B::IMASK;
 #pragma unroll
-    for (int k = 1; k < MAX_BW; ++k) {
-      const uint32_t rk = (ranks[s] >> (2 * k)) & 3u;
+    for (int k = 1; k < BW; ++k) {
+      const uint32_t rk = (ranks[s] >> (B::IB * k)) & B::IMASK;
       if (k < bw && (cost[s][k] < bc || (cost[s][k] == bc && rk < br))) {
         best = k;
         bc = cost[s][k];
@@ -1153,6 +1221,9 @@ __device__ void beam_wl_int_general(const FusedRolloutParams& p,
 // centroid route keeps its terms: neither this route nor its crossing count
 // (which fills seg and tag) reads those, and "both"'s centroid route has
 // added them up by then. Then the crossings of all of them are counted.
+// BW is the instantiation's most beams: MAX_BW (T_WIDE) or WIDE6_BW
+// (T_WIDE6, the same board).
+template <int BW>
 __device__ void beam_wl_int_wide(const FusedRolloutParams& p,
                                  const WarpBoard<T_WIDE>& b, int lane,
                                  float& wl_out, int& ints_out) {
@@ -1202,11 +1273,13 @@ __device__ void beam_wl_int_wide(const FusedRolloutParams& p,
     const int st_h = __shfl_sync(FULL, start_l, (n0 + lane) & 31) - off;
     const int nh = min(N - n0, H);
     int* seg_h = segs + n0 * M;
-    wl = M > 32   ? beam_nets<SPAN>(p, nh, half, cnt_h, st_h, lane, seg_h, wl)
-         : M > 16 ? beam_nets<SLOTS>(p, nh, half, cnt_h, st_h, lane, seg_h,
-                                     wl)
-                  : beam_nets<SEGMENTS, true>(p, nh, half, cnt_h, st_h, lane,
-                                              seg_h, wl);
+    wl = M > 32 ? beam_nets<SPAN, false, BW>(p, nh, half, cnt_h, st_h, lane,
+                                             seg_h, wl)
+         : M > 16
+             ? beam_nets<SLOTS, false, BW>(p, nh, half, cnt_h, st_h, lane,
+                                           seg_h, wl)
+             : beam_nets<SEGMENTS, true, BW>(p, nh, half, cnt_h, st_h, lane,
+                                             seg_h, wl);
   }
   wl_out = wl;
   ints_out = beam_crossings<4>(segs, N, M, lane);
@@ -1222,8 +1295,8 @@ __device__ __forceinline__ float routed_reward(const FusedRolloutParams& p,
   float wl = 0.f, c_wl = 0.f;
   int ints = 0, c_ints = 0;
   if constexpr (K != K_BEAM) centroid_wl_int(p, b, lane, c_wl, c_ints);
-  if constexpr (K != K_CENTROID && TIER == T_WIDE)
-    beam_wl_int_wide(p, b, lane, wl, ints);
+  if constexpr (K != K_CENTROID && TIER >= T_WIDE)
+    beam_wl_int_wide<tier_beam_width(TIER)>(p, b, lane, wl, ints);
   if constexpr (K != K_CENTROID && TIER == T_GENERAL)
     beam_wl_int_general(p, b, lane, segs, wl, ints);
   if constexpr (K != K_CENTROID && TIER == T_DEFAULT)
@@ -1561,7 +1634,7 @@ template <int TIER, class Cell>
 __device__ void generate(const FusedRolloutParams& p, const Rng& rng,
                          WarpBoard<TIER>& b, int* table, Cell* cells,
                          int lane) {
-  constexpr bool GENERAL = TIER == T_GENERAL, WIDE = TIER == T_WIDE;
+  constexpr bool GENERAL = TIER == T_GENERAL, WIDE = TIER >= T_WIDE;
   constexpr int PS = WarpBoard<TIER>::PS, CS = WarpBoard<TIER>::CS;
   const int C = p.components, N = p.nets, M = p.pins_per_net, P = p.pins;
   const int PPC = p.pins_per_component;
@@ -1855,7 +1928,7 @@ fused_rollout_warp_kernel(FusedRolloutParams p, FusedRolloutLeaves in,
   int dcnt = 0;
   for (int t = 0; t < num_steps; ++t) {
     rng.salt = step_salt(blk_salt, t);
-    if constexpr (TIER == T_WIDE)
+    if constexpr (TIER >= T_WIDE)
       step<K, TIER>(p, rng, bd, rsum, dcnt, s_wide[warp].gen.table,
                     s_wide[warp].gen.cells, lane);
     else
@@ -1903,7 +1976,13 @@ int launch(const FusedRolloutParams& p, const FusedRolloutLeaves& in,
            int batch, int num_steps, int block, uint32_t seed,
            cudaStream_t stream) {
   const int grid = (batch + WARPS - 1) / WARPS;
-  if (p.tier == T_WIDE) {
+  if (p.tier == T_WIDE6) {
+    if constexpr (K == K_CENTROID) return (int)cudaErrorInvalidValue;
+    else
+      fused_rollout_warp_kernel<K, T_WIDE6><<<grid, BLOCK_THREADS, 0,
+                                              stream>>>(
+          p, in, out, rsum, dcnt, batch, num_steps, block, seed);
+  } else if (p.tier == T_WIDE) {
     fused_rollout_warp_kernel<K, T_WIDE><<<grid, BLOCK_THREADS, 0, stream>>>(
         p, in, out, rsum, dcnt, batch, num_steps, block, seed);
   } else if (p.tier == T_GENERAL) {
@@ -1928,6 +2007,10 @@ int occupancy() {
 
 template <int K>
 int boards_per_sm(int tier) {
+  if (tier == T_WIDE6) {
+    if constexpr (K == K_CENTROID) return -1;
+    else return occupancy<K, T_WIDE6>();
+  }
   return tier == T_WIDE      ? occupancy<K, T_WIDE>()
          : tier == T_GENERAL ? occupancy<K, T_GENERAL>()
                              : occupancy<K, T_DEFAULT>();

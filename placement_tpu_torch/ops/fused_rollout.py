@@ -32,10 +32,13 @@ generator); the SQUARE and RECT reduced kernels (+1 per placement, no pin
 tables). Each kernel has a default instantiation (the flagship's sizes)
 and a general one (``needs_general``: more than 8 nets or 16 pins per net,
 or a side over 32), which together take the JAX kernel's whole envelope
-and boards of up to 32 x 32 (``KERNEL_CAPACITY``). The centroid kernel has
+and boards of up to 32 x 32 (``KERNEL_CAPACITY``). Each pin kernel has
 a third, wide one (``needs_wide``: more components, pins or cells a
 component than the general one holds, on sides of up to 32), which takes
-the web app's largest boards (``WIDE_CAPACITY``); ``kernel_tier`` names the
+the web app's largest boards (``WIDE_CAPACITY``); the beam and "both"
+kernels a fourth, ``wide6``: the wide one's board and tables with a beam
+route of up to six beams, which runs every pin config on sides of up to
+32 at beam widths 5 and 6 (``WIDE6_CAPACITY``). ``kernel_tier`` names the
 instantiation a configuration runs.
 """
 
@@ -107,8 +110,14 @@ WIDE_CAPACITY = {
     "pins_per_component": 25,
     "beam_slots": 4,
 }
+#: What the wide6 instantiation of the beam and "both" kernels holds: the
+#: wide one's capacities and beams of up to ``beam_width`` (``WIDE6_BW`` of
+#: ``csrc/fused_common.cuh``, reported as ``wide6.beam_width``). A pin
+#: config on sides of up to 32 under a beam wider than ``KERNEL_CAPACITY``'s
+#: runs it, whatever its size within these.
+WIDE6_CAPACITY = {**WIDE_CAPACITY, "beam_width": 6}
 #: The pin kernels' instantiations, in the order of the C enum ``Tier``.
-TIERS = ("default", "general", "wide")
+TIERS = ("default", "general", "wide", "wide6")
 
 #: The kernel's specialisations, in the order of the C enum ``Kernel``.
 KERNELS = ("centroid", "beam", "both", "square", "rect")
@@ -715,24 +724,32 @@ def beam_slots(nets: int, pins_per_net: int) -> int:
 
 
 def _wide_candidate(params: EnvParams) -> bool:
-    """A pin config, under the centroid reward or a beam of up to
-    ``beam_width`` of ``KERNEL_CAPACITY``, whose board fits a grid row per
-    lane: the wide instantiation's kind."""
+    """A pin config whose board fits a grid row per lane: the wide
+    instantiations' kind."""
     return (params.has_pins
-            and (params.reward_type == "centroid"
-                 or params.reward_beam_width <= KERNEL_CAPACITY["beam_width"])
             and params.height <= WIDE_CAPACITY["height"]
             and params.width <= WIDE_CAPACITY["width"])
 
 
-def _wide_sizes(params: EnvParams) -> Dict[str, int]:
-    """What the wide instantiation holds ``params`` to: its pin tables
-    and, under the beam and "both" rewards, its beam route's slots."""
+def _wide6(params: EnvParams) -> bool:
+    """Whether a beam or "both" config's beam is wider than
+    ``KERNEL_CAPACITY``'s (the wide6 instantiation's kind)."""
+    return (params.reward_type in ("beam", "both")
+            and params.reward_beam_width > KERNEL_CAPACITY["beam_width"])
+
+
+def _wide_reasons(params: EnvParams) -> "list[str]":
+    """The limits of the wide instantiation ``params`` would run that it
+    breaks: its pin tables and, under the beam and "both" rewards, its
+    beam route's slots and (wide6) its beam width."""
     sizes = _pin_sizes(params)
     if params.reward_type in ("beam", "both"):
         sizes["beam_slots"] = beam_slots(params.max_num_nets,
                                          params.max_num_pins_per_net)
-    return sizes
+    if _wide6(params):
+        sizes["beam_width"] = int(params.reward_beam_width)
+        return _over(sizes, WIDE6_CAPACITY)
+    return _over(sizes, WIDE_CAPACITY)
 
 
 def _over(sizes: Dict[str, int], capacity: Dict[str, int]) -> "list[str]":
@@ -748,13 +765,13 @@ def envelope_report(params: EnvParams) -> "tuple[bool, list]":
     ``components_nopin`` only. A board with one side over 32 is held to the
     area, and breaks that side's limit and the area's where it is over; one
     with both sides over 32 breaks both sides'. A pin config on sides of
-    up to 32 (and a beam within ``beam_width``) that those capacities
-    refuse is held to the wide instantiation's (``WIDE_CAPACITY``) instead,
-    and the reasons are its. Returns ``(ok, reasons)``, one reason per
-    violated limit."""
+    up to 32 that those capacities refuse is held to the wide
+    instantiation's (``WIDE_CAPACITY``; past their beam width,
+    ``WIDE6_CAPACITY``) instead, and the reasons are its. Returns ``(ok,
+    reasons)``, one reason per violated limit."""
     reasons = _general_reasons(params)
     if reasons and _wide_candidate(params):
-        reasons = _over(_wide_sizes(params), WIDE_CAPACITY)
+        reasons = _wide_reasons(params)
     return not reasons, reasons
 
 
@@ -781,10 +798,9 @@ def supports(params: EnvParams) -> bool:
 
 
 def needs_wide(params: EnvParams) -> bool:
-    """Whether ``params`` runs the wide instantiation of its pin kernel:
-    a pin config on sides of up to 32 (and a beam within ``beam_width``)
-    with more components, pins or cells a component than the general one
-    holds."""
+    """Whether ``params`` runs a wide instantiation of its pin kernel: a
+    pin config on sides of up to 32 with more components, pins or cells a
+    component than the general one holds, or a wider beam (wide6)."""
     return _wide_candidate(params) and bool(_general_reasons(params))
 
 
@@ -805,7 +821,7 @@ def kernel_tier(params: EnvParams) -> str:
     """The instantiation of its kernel that ``params`` runs (``TIERS``):
     picked once, when a ``FusedRollout`` is made."""
     if needs_wide(params):
-        return "wide"
+        return "wide6" if _wide6(params) else "wide"
     return "general" if needs_general(params) else "default"
 
 
@@ -873,8 +889,8 @@ _library_s: Optional[float] = None
 @functools.lru_cache(maxsize=None)
 def kernel_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, once per process;
-    checks that its compiled capacities are ``KERNEL_CAPACITY`` and
-    ``WIDE_CAPACITY``. The build or load is the span
+    checks that its compiled capacities are ``KERNEL_CAPACITY``,
+    ``WIDE_CAPACITY`` and ``WIDE6_CAPACITY``. The build or load is the span
     ``fused_rollout.library``, an nvcc build inside it
     ``fused_rollout.build``."""
     global _library_s
@@ -894,8 +910,8 @@ def library_seconds() -> Optional[float]:
 
 def load_kernel_library(path) -> ctypes.CDLL:
     """Load a built kernel library and declare its C entry points; checks
-    that its compiled capacities are ``KERNEL_CAPACITY`` and
-    ``WIDE_CAPACITY``."""
+    that its compiled capacities are ``KERNEL_CAPACITY``,
+    ``WIDE_CAPACITY`` and what ``WIDE6_CAPACITY`` adds to it."""
     lib = ctypes.CDLL(str(path))
     lib.fused_rollout_launch.restype = ctypes.c_int
     lib.fused_rollout_launch.argtypes = [
@@ -908,7 +924,10 @@ def load_kernel_library(path) -> ctypes.CDLL:
     lib.fused_rollout_boards_per_sm.restype = ctypes.c_int
     lib.fused_rollout_boards_per_sm.argtypes = [
         ctypes.POINTER(_KernelParams)]
-    for prefix, want in (("", KERNEL_CAPACITY), ("wide.", WIDE_CAPACITY)):
+    wide6 = {k: v for k, v in WIDE6_CAPACITY.items()
+             if k not in WIDE_CAPACITY}
+    for prefix, want in (("", KERNEL_CAPACITY), ("wide.", WIDE_CAPACITY),
+                         ("wide6.", wide6)):
         got = {k: lib.fused_rollout_capacity(f"{prefix}{k}".encode())
                for k in want}
         if got != want:

@@ -80,6 +80,9 @@ struct alignas(16) int4 {
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};

@@ -89,7 +89,7 @@ def test_fused_row_runs_on_cpu_tensors(name, configs, monkeypatch):
 def test_web_max_row_raises_naming_the_pooled_engine(configs, monkeypatch):
     """The fused measure refuses a configuration outside the kernels'
     envelope, naming the pooled engine: the web app's maximum under a beam
-    wider than the kernels' 4 (the wide instantiations hold up to 4).
+    wider than the kernels' 6 (the wide6 instantiations hold up to 6).
     The ``web_max_pooled`` row stays the pooled engine's: ``main`` runs it
     there (on the card: here it raises without one)."""
     params, anchor = configs["web_max_pooled"]
@@ -97,7 +97,7 @@ def test_web_max_row_raises_naming_the_pooled_engine(configs, monkeypatch):
     with pytest.raises(ValueError, match="pooled engine"):
         bench_matrix.measure("web_max_pooled",
                              params.replace(reward_type="beam",
-                                            reward_beam_width=5), anchor, 16,
+                                            reward_beam_width=7), anchor, 16,
                              "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -14,7 +14,9 @@ over the warp's lanes, so one side may pass 32 where the area stays within
     does too; both refuse the over-limit cases; JAX refuses the web app's
     maximum, which the port takes on the pin kernels' wide
     instantiations (under the beam and "both" rewards, where its beam
-    route's four lane slots hold the nets);
+    route's four lane slots hold the nets); the port holds more than JAX
+    at beam widths 5 and 6 (the web app's widest), on the wide6
+    instantiations, wherever both sides are within 32;
   * the edge configurations (``EDGES``): the port's plain version against
     the JAX kernel under the Pallas TPU interpreter, 16 all-done zero
     boards, logical block 8, two chained chunks, through recorded fixtures
@@ -270,8 +272,10 @@ _MANY = {"height": 32, "width": 32, "min_component_h": 2,
                        "min_num_pins_per_net": 40,
                        "max_num_pins_per_net": 40, "reward_type": "beam",
                        "reward_beam_width": 4}, "beam_slots=6 > 4"),
-    ("rectangle_pin", {"reward_type": "beam", "reward_beam_width": 5},
-     "beam_width=5 > 4"),
+    # width 5 on a side over 32: no instantiation holds both (the wide6
+    # one holds width 5 on a grid row a lane)
+    ("rectangle_pin", {"height": 3, "width": 48, "reward_type": "beam",
+                       "reward_beam_width": 5}, "beam_width=5 > 4"),
     ("rectangle", {"min_num_components": 65, "max_num_components": 65,
                    "height": 12, "width": 12, "min_component_h": 1,
                    "max_component_h": 1, "min_component_w": 1,
@@ -291,6 +295,14 @@ _MANY = {"height": 32, "width": 32, "min_component_h": 2,
     ("rectangle_pin", {**_MANY, "min_num_nets": 2, "max_num_nets": 25,
                        "min_num_pins_per_net": 2,
                        "max_num_pins_per_net": 2}, "nets=25 > 24"),
+    # past the wide6 instantiation's six beams
+    ("rectangle_pin", {"reward_type": "beam", "reward_beam_width": 7},
+     "beam_width=7 > 6"),
+    ("rectangle_spatial_pin", {**WEB_MAX, "reward_type": "both",
+                               "reward_beam_width": 8}, "beam_width=8 > 6"),
+    # width 6 on a side over 32, as width 5 above
+    ("rectangle_pin", {"height": 36, "width": 4, "reward_type": "both",
+                       "reward_beam_width": 6}, "beam_width=6 > 4"),
 ])
 def test_both_refuse_over_limit_configs(config, overrides, limit):
     j, t = _params(config, overrides)
@@ -328,6 +340,68 @@ def test_jax_refuses_what_the_wide_tier_takes(config, overrides, reward):
     assert torch_fused.needs_wide(t) and not torch_fused.needs_general(t)
     fn = torch_fused.make_fused_rollout(t, 8, 5, device="cpu")
     assert fn.tier == "wide" and fn._kparams.tier == 2
+
+
+@pytest.mark.parametrize("config,reward", itertools.product(
+    ("rectangle_pin", "rectangle_spatial_pin"), ("beam", "both")))
+def test_port_holds_more_than_jax_at_width_5(config, reward):
+    """Wherever JAX fuses a configuration of the sweep at width 4 and
+    refuses it at width 5 (its beam width), the port takes it at width 5 on
+    the wide6 instantiation where both sides are within 32, and refuses it
+    under its beam width where a side passes 32."""
+    taken = refused = 0
+    for ov, j, t in _sweep(config, reward):
+        if ov["reward_beam_width"] != 5 or not jax_fused.envelope_report(
+                dataclasses.replace(j, reward_beam_width=4),
+                block=JAX_BLOCK)[0]:
+            continue
+        assert not jax_fused.envelope_report(j, block=JAX_BLOCK)[0]
+        if t.height <= 32 and t.width <= 32:
+            assert torch_fused.envelope_report(t) == (True, []), ov
+            assert torch_fused.kernel_tier(t) == "wide6", ov
+            taken += 1
+        else:
+            ok, reasons = torch_fused.envelope_report(t)
+            assert not ok and "beam_width=5 > 4" in reasons, (ov, reasons)
+            refused += 1
+    assert taken > 20 and refused > 20
+
+
+#: label -> (config, overrides): the tier at widths 2-4 (the wide6 one at
+#: 5 and 6, under the beam and "both" rewards alike)
+TIER_ROWS = {
+    "flagship": ("rectangle_pin", {}, "default"),
+    "web_nets10": EDGES["web_nets10"] + ("general",),
+    "ppn24": ("rectangle_pin", {k: v for k, v in EDGES["ppn24_beam4"][1]
+                                .items() if k != "reward_beam_width"},
+              "general"),
+    "web_max": ("rectangle_spatial_pin", WEB_MAX, "wide"),
+    "components9": ("rectangle_pin", _NINE_COMPONENTS, "wide"),
+}
+
+
+@pytest.mark.parametrize("reward", ["beam", "both"])
+@pytest.mark.parametrize("row", sorted(TIER_ROWS))
+def test_beam_width_picks_the_tier(row, reward):
+    """Widths 2-4 keep the tier each config ran before the wide6
+    instantiation; widths 5 and 6 run the wide6 one, whatever the config's
+    size within the wide tables, and ``make_fused_rollout`` makes it."""
+    config, overrides, narrow = TIER_ROWS[row]
+    for bw in range(2, 7):
+        _, t = _params(config, {**overrides, "reward_type": reward,
+                                "reward_beam_width": bw})
+        want = narrow if bw <= 4 else "wide6"
+        assert torch_fused.kernel_tier(t) == want, bw
+        assert torch_fused.needs_wide(t) == want.startswith("wide"), bw
+        assert not torch_fused.needs_general(t) or want == "general", bw
+        fn = torch_fused.make_fused_rollout(t, 8, 5, device="cpu")
+        assert fn.tier == want
+        assert fn._kparams.tier == torch_fused.TIERS.index(want)
+    # the centroid reward at width 6 keeps its tier (the page's width
+    # slider does not move it)
+    _, t = _params(config, {**overrides, "reward_type": "centroid",
+                            "reward_beam_width": 6})
+    assert torch_fused.kernel_tier(t) == narrow
 
 
 @pytest.mark.parametrize("name", sorted(EDGES))

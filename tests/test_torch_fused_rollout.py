@@ -216,17 +216,19 @@ def test_fixtures_are_fresh(jax_zero_b128):
 
 @pytest.mark.parametrize("name,overrides,limits", [
     # the web app's maximum sliders under a beam wider than 4, which the
-    # JAX kernel refuses too (tests/tooling/test_fused_rollout.py:182-207);
-    # the pin kernels' wide instantiations take them at a width of up to 4
-    # (tests/test_torch_fused_envelope.py)
-    ("rectangle_pin", {"height": 30, "width": 30,
+    # JAX kernel refuses too (tests/tooling/test_fused_rollout.py:182-207),
+    # on a board one column wider than the wide instantiations' grid rows:
+    # those take the sliders at a width of up to 6 on sides of up to 32
+    # (tests/test_torch_fused_envelope.py), and no instantiation holds this
+    ("rectangle_pin", {"height": 30, "width": 33,
                        "min_component_h": 1, "max_component_h": 5,
                        "min_component_w": 1, "max_component_w": 5,
                        "min_num_components": 10, "max_num_components": 40,
                        "min_num_nets": 2, "max_num_nets": 10,
                        "min_num_pins_per_net": 2, "max_num_pins_per_net": 10,
                        "reward_type": "beam", "reward_beam_width": 5},
-     ("components=40", "pins=100", "pins_per_component=25")),
+     ("components=40", "pins=100", "pins_per_component=25",
+      "beam_width=5")),
 ])
 def test_unsupported_configs_raise(name, overrides, limits):
     params = load_env_params(name).replace(**overrides)
@@ -270,11 +272,12 @@ def test_envelope_and_argument_checks():
     ("rectangle_pin", {"max_num_components": 65, "min_num_components": 65,
                        "reward_type": "beam"},
      "components=65 > 64"),
-    # the beam width is checked only where a beam is routed
-    ("rectangle_pin", {"reward_type": "beam", "reward_beam_width": 5},
-     "beam_width=5 > 4"),
-    ("rectangle_pin", {"reward_type": "both", "reward_beam_width": 5},
-     "beam_width=5 > 4"),
+    # the beam width is checked only where a beam is routed; past 4 it needs
+    # both sides within 32 (the wide6 instantiations)
+    ("rectangle_pin", {"height": 3, "width": 48, "reward_type": "beam",
+                       "reward_beam_width": 5}, "beam_width=5 > 4"),
+    ("rectangle_pin", {"height": 36, "width": 4, "reward_type": "both",
+                       "reward_beam_width": 5}, "beam_width=5 > 4"),
 ])
 def test_envelope_rejects_over_capacity(name, overrides, reason):
     params = load_env_params(name).replace(**overrides)

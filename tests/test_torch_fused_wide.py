@@ -28,7 +28,8 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 TIERS = {"rectangle_pin.centroid": "default", "rectangle_pin.beam": "default",
          "web_nets10.centroid": "general", "web_nets10.both": "general",
          "web_max.centroid": "wide", "web_max.beam": "wide",
-         "rectangle_pin.varpin": "default"}
+         "rectangle_pin.varpin": "default", "web_max.beam6": "wide6",
+         "rectangle_pin.b16384": "default"}
 
 
 def _env(cell):

@@ -6,10 +6,11 @@ wide operations.
     bit, in float32 and in the control's bfloat16, on seeded pin tables of
     web_max's shapes (10 nets of 2..10 pins on 30 x 30) and of the
     web_nets10_both row's (10 nets of 2..4 pins on 10 x 10), at widths 2
-    and 4, their coordinates spread over the board or crowded onto 3 x 3
+    and 4 and at the Train page's widest, 5 and 6 (the web_max.beam6
+    cell's), their coordinates spread over the board or crowded onto 3 x 3
     cells (ties of distance and of path keys);
   * its chunk equals the frozen reference's under the beam and "both"
-    rewards on web_max;
+    rewards on web_max, at widths up to 6;
   * it imports nothing of the program;
   * the ``fused_wide_beam`` engine decides the web_max.beam cell's
     ``correct`` on a CPU run (the program's plain version in the kernel's
@@ -59,7 +60,7 @@ def _pin_tables(params, boards, span, seed):
 @pytest.mark.parametrize("config,span", [("web_max", 30), ("web_max", 3),
                                          ("web_nets10", 10),
                                          ("web_nets10", 3)])
-@pytest.mark.parametrize("bw", [2, 4])
+@pytest.mark.parametrize("bw", [2, 4, 5, 6])
 def test_wide_beam_route_equals_the_frozen_one(config, span, bw):
     params = _params(config, reward_type="beam", reward_beam_width=bw)
     tables = _pin_tables(params, 24, span, 1000 * bw + span)
@@ -70,7 +71,8 @@ def test_wide_beam_route_equals_the_frozen_one(config, span, bw):
     assert float(want[1].sum()) > 0         # crossings were counted
 
 
-@pytest.mark.parametrize("reward,bw", [("beam", 4), ("both", 2)])
+@pytest.mark.parametrize("reward,bw", [("beam", 4), ("both", 2),
+                                       ("beam", 6), ("both", 5)])
 def test_wide_beam_chunk_equals_the_frozen_one(reward, bw):
     """Two chained chunks of 4 web_max boards, logical block 4, from
     all-done zero boards: bit for bit, in float32 and in the control's

@@ -419,6 +419,41 @@ def test_cuda_wide_beam_kernel_web_max_at_4096_boards(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("reward,bw", [("beam", 6), ("both", 5)])
+def test_cuda_wide6_kernel_web_max_at_4096_boards(cuda, reward, bw):
+    """The wide6 instantiations (a beam route of up to six beams) on the
+    web app's largest boards at the Train page's widest beams, 4096
+    boards, logical block 128: after three chunks that leave the boards
+    mid-episode, a 10-step chunk against the plain version: leaves and
+    done counts equal, beam rewards equal, "both" rewards within 5e-4."""
+    params = load_env_params("rectangle_spatial_pin").replace(
+        **WEB_MAX, reward_type=reward, reward_beam_width=bw)
+    assert torch_fused.kernel_tier(params) == "wide6"
+    fn = torch_fused.make_fused_rollout(params, 4096, 50, block=128,
+                                        device=cuda)
+    assert torch_fused.boards_per_sm(params, "wide6") > 0
+    leaves = torch_fused.zero_leaves(params, 4096, cuda)
+    for seed in (1, 2, 3):
+        leaves, _, _ = fn.per_board(leaves, seed)
+    short = torch_fused.make_fused_rollout(params, 4096, 10, block=128,
+                                           device=cuda)
+    got, got_r, got_d = short.per_board(leaves, 4)
+    want, want_r, want_d = torch_fused.rollout_chunk_reference(
+        params, leaves, 4, 10, 128)
+    torch.cuda.synchronize()
+    for k in torch_fused._LEAVES:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got_d, want_d) and int(got_d.sum()) > 256
+    if reward == "beam":
+        assert torch.equal(got_r, want_r)
+    else:
+        torch.testing.assert_close(got_r, want_r, rtol=0, atol=5e-4)
+    with pytest.raises(ValueError, match="beam_width=7 > 6"):
+        torch_fused.make_fused_rollout(params.replace(reward_beam_width=7),
+                                       128, 5, device=cuda)
+
+
+@pytest.mark.gpu
 def test_cuda_wide_kernel_holds_many_boards_and_refuses_past_its_tables(
         cuda):
     """The wide instantiation keeps all 4096 boards resident at once on

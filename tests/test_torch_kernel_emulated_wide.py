@@ -14,8 +14,11 @@ slots each (``BEAM_CASES``): the web app's largest boards at width 4, nets
 whose pins fill all four pin slots, and the route's layouts of 17-32 pins
 a net (a net a slot) and of more (a net over two slots); for the segments'
 candidate search by rank counts, pins at equal distances, full 10- and
-16-pin segments and beams wider than their nets. A file of its
-own, so that ``--dist loadfile`` runs it beside the others.
+16-pin segments and beams wider than their nets. The wide6 instantiations
+of the beam and "both" kernels, the same boards with a beam route of up to
+six beams (``WIDE6_CASES``), run the web app's largest boards at widths 5
+and 6 and the flagship at width 6. A file of its own, so that ``--dist
+loadfile`` runs it beside the others.
 """
 
 import numpy as np
@@ -214,3 +217,53 @@ def test_emulated_wide_beam_kernel_matches_plain_version(emulated_library,
         routed += int((rsum != dcnt * penalty).sum())
     assert (got[0][2] >= 1).all()         # every zero board regenerated
     assert routed >= 3                    # episodes were routed
+
+
+#: label -> (config, overrides, steps a chunk) on the wide6 instantiations.
+#: Each runs 8 boards, logical block 4, one chunk from zero boards: their
+#: regeneration, then a placed and routed episode a board (the plain
+#: version's beam route at width 6 takes ~20 s a chunk of 8 web_max boards).
+WIDE6_CASES = {
+    # the web_max.beam6 cell's configuration and width: three nets of 10
+    # pins a segment slot, six beams a net; and width 5 on the same
+    # instantiation
+    "web_max_spatial_beam6": ("rectangle_spatial_pin", {
+        **_WEB_MAX, "reward_type": "beam", "reward_beam_width": 6}, 45),
+    "web_max_spatial_beam5": ("rectangle_spatial_pin", {
+        **_WEB_MAX, "reward_type": "beam", "reward_beam_width": 5}, 45),
+    "web_max_spatial_both6": ("rectangle_spatial_pin", {
+        **_WEB_MAX, "reward_type": "both", "reward_beam_width": 6}, 45),
+    # the flagship (3 nets of 6 pins, within the default tables) at the
+    # Train page's widest beam: beams as wide as their nets
+    "flagship_beam6": ("rectangle_pin", {
+        "reward_type": "beam", "reward_beam_width": 6}, 30),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE6_CASES))
+def test_emulated_wide6_beam_kernel_matches_plain_version(emulated_library,
+                                                          case):
+    config, overrides, steps = WIDE6_CASES[case]
+    params = load_env_params(config).replace(**overrides).validate()
+    assert torch_fused.kernel_tier(params) == "wide6"
+    batch, block, seed = 8, 4, 11
+    leaves = torch_fused.zero_leaves(params, batch, "cpu")
+    (new, rsum, dcnt), = emu.run_chunks(
+        emulated_library, torch_fused._kernel_params(params),
+        torch_fused.leaves_to_numpy(leaves), [seed], steps, block,
+        CASE_TIMEOUT)
+    leaves, want_r, want_d = torch_fused.rollout_chunk_reference(
+        params, leaves, seed, steps, block)
+    want = torch_fused.leaves_to_numpy(leaves)
+    for k in torch_fused._LEAVES:
+        np.testing.assert_array_equal(new[k], want[k], err_msg=k)
+    np.testing.assert_array_equal(dcnt, want_d.numpy())
+    if params.reward_type == "beam":
+        np.testing.assert_array_equal(rsum, want_r.numpy())
+    else:
+        # where the centroid route wins, the plain version adds its
+        # wirelength terms in another order
+        np.testing.assert_allclose(rsum, want_r.numpy(), rtol=0, atol=5e-4)
+    penalty = np.float32(torch_fused._penalty(params))
+    assert (dcnt >= 1).all()                        # zero boards regenerated
+    assert int((rsum != dcnt * penalty).sum()) >= 3  # episodes were routed

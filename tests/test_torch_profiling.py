@@ -151,6 +151,40 @@ def test_launch_records_alloc_and_launch_once_per_launch(monkeypatch):
     assert names.count("fused_rollout.launch") == fn.launches - 1
 
 
+def test_width_6_rollout_records_the_same_spans(monkeypatch):
+    """A rollout on the wide6 instantiation (the flagship at the Train
+    page's widest beam) goes through the same host path: ``per_board``
+    around its checks on the CPU, and with the kernel library and the CUDA
+    device calls stubbed, ``alloc`` and ``launch`` a launch, counted by
+    ``launches``, the C call given the wide6 tier and width 6."""
+    calls = []
+    lib = types.SimpleNamespace(
+        fused_rollout_launch=lambda *args: calls.append(
+            (args[0]._obj.tier, args[0]._obj.beam_width)) or 0)
+    monkeypatch.setattr(torch_fused, "kernel_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    params = load_env_params("rectangle_pin").replace(
+        reward_type="beam", reward_beam_width=6)
+    fn = torch_fused.make_fused_rollout(params, 8, 2, device="cpu")
+    assert fn.tier == "wide6"
+    leaves = torch_fused.zero_leaves(params, 8, "cpu")
+    profiling.enable()
+    fn.per_board(leaves, 1)
+    with profiling.span("fused_rollout.per_board"):
+        with profiling.span("fused_rollout.check"):
+            fn._check_leaves(leaves)
+        fn._launch(leaves, 2)
+    assert [(n, p) for n, _, _, p in profiling.spans()] == [
+        ("fused_rollout.per_board", -1), ("fused_rollout.check", 0),
+        ("fused_rollout.per_board", -1), ("fused_rollout.check", 2),
+        ("fused_rollout.alloc", 2), ("fused_rollout.launch", 2)]
+    assert fn.launches == 1
+    assert calls == [(torch_fused.TIERS.index("wide6"), 6)]
+
+
 def test_kernel_library_records_its_load_once_and_the_build_under_it(
         tmp_path, monkeypatch):
     """The library's first call in a process is the ``library`` span, with
